@@ -26,10 +26,6 @@ class PairBatch:
     rot: torch.Tensor  # [B, 3, 3] GT rotation src->tgt
     trans: torch.Tensor  # [B, 3]
 
-    @property
-    def batch_size(self) -> int:
-        return self.points.shape[0]
-
 
 def subsample_to_budget(
     n: int, budget: int, rng: Optional[np.random.Generator] = None

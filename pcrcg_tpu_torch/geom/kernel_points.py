@@ -1,10 +1,12 @@
 """KPConv kernel-point dispositions (numpy only).
 
-The port's copy of ``pcrcg_tpu/geom/kernel_points.py``: the cached
-canonical disposition (``dispositions/k_015_center_3d.npy``, the same file
-the JAX package ships) plus the per-layer random z-rotation, 0.01 jitter
-and radius scale (reference kernels/kernel_points.py:433-468).  Both
-packages therefore give every layer bit-identical kernel points.
+The port's copy of ``pcrcg_tpu/geom/kernel_points.py::layer_kernel_points``:
+the canonical disposition cached in ``dispositions/`` (the same file the
+JAX package ships; K=15, center fixed, the layout every shipped config
+uses) plus the per-layer random z-rotation, 0.01 jitter and radius scale
+(reference kernels/kernel_points.py:433-468).  Both packages therefore
+give every layer bit-identical kernel points.  Other dispositions are
+optimized by the JAX package (``kernel_dispositions``) and not ported.
 """
 from __future__ import annotations
 
@@ -16,74 +18,18 @@ import numpy as np
 _CACHE_DIR = os.path.join(os.path.dirname(__file__), "dispositions")
 
 
-def _optimize_dispositions(
-    num_points: int,
-    dimension: int = 3,
-    fixed: str = "center",
-    ratio: float = 0.66,
-    num_candidates: int = 20,
-    seed: int = 0,
-) -> np.ndarray:
-    """Gradient descent on the repulsion + radial energy; returns the best of
-    ``num_candidates`` random restarts, scaled so the mean non-center radius
-    is ``ratio`` (in a unit sphere)."""
-    rng = np.random.default_rng(seed)
-    points = rng.uniform(-1.0, 1.0, size=(num_candidates, num_points * 3, dimension))
-    keep = []
-    for c in range(num_candidates):
-        p = points[c]
-        p = p[np.sum(p**2, axis=1) < 0.5][:num_points]
-        while p.shape[0] < num_points:
-            extra = rng.uniform(-1.0, 1.0, size=(num_points * 3, dimension))
-            extra = extra[np.sum(extra**2, axis=1) < 0.5]
-            p = np.concatenate([p, extra], 0)[:num_points]
-        keep.append(p)
-    kernels = np.stack(keep)  # [C, K, D]
-    if fixed == "center":
-        kernels[:, 0, :] = 0.0
-
-    step = 1e-2
-    decay = 0.9995
-    clip = 0.05
-    thresh = 1e-5
-    old_norms = np.zeros(kernels.shape[:2])
-    final_norms = None
-    for _ in range(10000):
-        diff = kernels[:, :, None, :] - kernels[:, None, :, :]  # [C,K,K,D]
-        d2 = np.sum(diff**2, axis=-1)
-        inter = np.sum(diff / (d2[..., None] ** 1.5 + 1e-6), axis=1)
-        grads = inter + 10.0 * kernels
-        norms = np.sqrt(np.sum(grads**2, axis=-1))  # [C,K]
-        final_norms = norms
-        if np.max(np.abs(old_norms[:, 1:] - norms[:, 1:])) < thresh:
-            break
-        old_norms = norms
-        move = np.minimum(step * norms, clip)
-        if fixed == "center":
-            move[:, 0] = 0.0
-        kernels -= move[..., None] * grads / (norms[..., None] + 1e-6)
-        step *= decay
-
-    best = int(np.argmin(np.max(final_norms, axis=1)))
-    kp = kernels[best]
-    radii = np.sqrt(np.sum(kp**2, axis=-1))
-    kp *= ratio / np.mean(radii[1:])
-    return kp.astype(np.float32)
-
-
 @functools.lru_cache(maxsize=8)
 def kernel_dispositions(
     num_points: int = 15, dimension: int = 3, fixed: str = "center"
 ) -> np.ndarray:
-    """Canonical unit-radius disposition [K, D], cached on disk so every run
-    sees the same layout (repulsion method; the slice's configs use K=15)."""
+    """Canonical unit-radius disposition [K, D] from the cached file."""
     path = os.path.join(_CACHE_DIR, f"k_{num_points:03d}_{fixed}_{dimension}d.npy")
-    if os.path.exists(path):
-        return np.load(path)
-    os.makedirs(_CACHE_DIR, exist_ok=True)
-    kp = _optimize_dispositions(num_points, dimension, fixed)
-    np.save(path, kp)
-    return kp
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no cached kernel disposition {os.path.basename(path)}; the port "
+            "ships K=15 (center fixed, 3-D) only"
+        )
+    return np.load(path)
 
 
 def layer_kernel_points(

@@ -16,15 +16,10 @@ from pcrcg_tpu_torch.models.kpconv import KPConv
 from pcrcg_tpu_torch.ops.masked import masked_instance_norm, pad_gather
 
 
-def make_dense(in_features: int, out_features: int, use_bias: bool) -> nn.Linear:
-    """nn.Linear whose ``reset_parameters`` draws torch's default
-    U(±1/√fan_in) kernel with a zero bias, as the JAX package's make_dense."""
-    return nn.Linear(in_features, out_features, bias=use_bias)
-
-
 def init_dense(layer: nn.Module, generator: torch.Generator) -> None:
-    """Kernel U(±1/√fan_in) from ``generator``, bias zero.  ``layer.weight``
-    is [out, in, ...]; fan_in is its second dimension."""
+    """The JAX package's ``make_dense`` init (torch nn.Linear's default
+    U(±1/√fan_in) kernel, zero bias), drawn from ``generator``.
+    ``layer.weight`` is [out, in, ...]; fan_in is its second dimension."""
     bound = (1.0 / layer.weight.shape[1]) ** 0.5
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)
@@ -45,28 +40,20 @@ def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
 
 
 class NormBlock(nn.Module):
-    """InstanceNorm over the joint src+tgt stack, or a learned bias."""
-
-    def __init__(self, dim: int, use_norm: bool = True):
-        super().__init__()
-        self.use_norm = use_norm
-        if not use_norm:
-            self.bias = nn.Parameter(torch.zeros(dim))
+    """InstanceNorm over the joint src+tgt stack (every shipped config has
+    use_batch_norm on; the reference's learned-bias variant is not used)."""
 
     def forward(self, x, mask):
-        if self.use_norm:
-            return masked_instance_norm(x, mask, dim=(0, 1))
-        return x + self.bias
+        return masked_instance_norm(x, mask, dim=(0, 1))
 
 
 class UnaryBlock(nn.Module):
     """Linear (no bias) -> norm -> LeakyReLU(0.1) (reference blocks.py:473-508)."""
 
-    def __init__(self, in_dim: int, out_dim: int, use_norm: bool = True,
-                 no_relu: bool = False):
+    def __init__(self, in_dim: int, out_dim: int, no_relu: bool = False):
         super().__init__()
-        self.mlp = make_dense(in_dim, out_dim, use_bias=False)
-        self.norm = NormBlock(out_dim, use_norm)
+        self.mlp = nn.Linear(in_dim, out_dim, bias=False)
+        self.norm = NormBlock()
         self.no_relu = no_relu
 
     def forward(self, x, mask):
@@ -79,7 +66,7 @@ class LastUnaryBlock(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.mlp = make_dense(in_dim, out_dim, use_bias=False)
+        self.mlp = nn.Linear(in_dim, out_dim, bias=False)
 
     def forward(self, x, mask):
         return self.mlp(x)
@@ -101,7 +88,7 @@ class SimpleBlock(nn.Module):
         half = out_dim // 2
         self.KPConv = KPConv(in_dim, half, radius, kp_extent, seed=kp_seed,
                              ones_features=ones_features, **config_kp)
-        self.norm = NormBlock(half)
+        self.norm = NormBlock()
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, tiled_meta):
         x = self.KPConv(q_pts, s_pts, x, tiled_meta)
@@ -119,7 +106,7 @@ class ResnetBottleneckBlock(nn.Module):
         self.strided = strided
         self.unary1 = UnaryBlock(in_dim, quarter) if in_dim != quarter else None
         self.KPConv = KPConv(quarter, quarter, radius, kp_extent, seed=kp_seed, **config_kp)
-        self.norm_conv = NormBlock(quarter)
+        self.norm_conv = NormBlock()
         self.unary2 = UnaryBlock(quarter, out_dim, no_relu=True)
         self.unary_shortcut = (
             UnaryBlock(in_dim, out_dim, no_relu=True) if in_dim != out_dim else None

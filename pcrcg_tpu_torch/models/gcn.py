@@ -13,7 +13,6 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pcrcg_tpu_torch.models.blocks import init_dense
 from pcrcg_tpu_torch.ops.masked import masked_instance_norm, masked_softmax, pad_gather
 from pcrcg_tpu_torch.ops.neighbors import knn_search
 
@@ -126,11 +125,6 @@ class GCN(nn.Module):
             else:
                 raise ValueError(f"Unknown GCN layer: {name}")
         self.layers = nn.ModuleList(layers)
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, Conv1x1):
-                init_dense(m, generator)
 
     def forward(self, coords0, coords1, desc0, desc1, mask0, mask1):
         for name, layer in zip(self.layer_names, self.layers):

@@ -134,10 +134,3 @@ def ransac_pose(
     fitness = best_inl / n_valid_f
     rmse = torch.sqrt(err / best_inl.clamp_min(1.0))
     return RansacResult(best_T, fitness, rmse)
-
-
-def to_homogeneous(T: torch.Tensor) -> torch.Tensor:
-    """[...,3,4] -> [...,4,4]."""
-    bottom = torch.zeros(T.shape[:-2] + (1, 4), dtype=T.dtype, device=T.device)
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([T, bottom], dim=-2)

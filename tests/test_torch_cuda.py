@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: each test skips (with its reason) where there is no CUDA
-device.  On a machine with a GPU and nvcc:
+device.  On a machine with a GPU and nvcc (``--noconftest``: the suite's
+conftest imports JAX, which the port does not need):
 
-    python -m pytest tests/test_torch_cuda.py -p no:xdist -p no:randomly -q
+    python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 """
 import numpy as np
 import pytest
