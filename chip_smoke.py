@@ -288,7 +288,7 @@ def phase_agree():
         batch = make_pair_batch([sample], 2048, device=dev)
         model = init_kpfcnn(cfg, seed=2, device=dev)
         res = register_pair(
-            model, cfg, batch.points[0], batch.masks[0], batch.features[0],
+            model, cfg, batch.points[0], batch.masks[0], batch.features[0], device=dev,
             n_points=n_points, num_iterations=iters, hypothesis_chunk=chunk,
             uniforms=tuple(u.to(dev) for u in uniforms), picks=picks.to(dev),
         )

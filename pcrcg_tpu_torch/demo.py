@@ -68,7 +68,7 @@ def main(argv=None):
     for label in ("first call", "second call"):
         t0 = time.perf_counter()
         res = register_pair(model, cfg, batch.points[0], batch.masks[0],
-                            batch.features[0], **kw)
+                            batch.features[0], device=device, **kw)
         _sync(device)
         print(f"{label}: {time.perf_counter() - t0:.3f}s", flush=True)
     print("estimated transform (src -> tgt):")

@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from pcrcg_tpu_torch import resolve_device
 from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
@@ -34,12 +35,23 @@ def register_pair(
     hypothesis_chunk: int = 1024,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
     picks: Optional[torch.Tensor] = None,
+    device=None,
 ):
-    """Full pair -> transform on the inputs' device.  Randomness comes from
-    ``generator`` (on that device), or from injected draws: ``uniforms``
-    (src, tgt) for the Gumbel sampling and ``picks`` for RANSAC.  Returns
-    a dict with transform [3,4], fitness, inlier_rmse and the model
-    outputs."""
+    """Full pair -> transform on ``device``: CUDA unless the caller names the
+    CPU (raises without CUDA otherwise); the inputs move there and the
+    model must already live there.  Randomness comes from ``generator`` (on
+    that device), or from injected draws: ``uniforms`` (src, tgt) for the
+    Gumbel sampling and ``picks`` for RANSAC.  Returns a dict with
+    transform [3,4], fitness, inlier_rmse and the model outputs."""
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev != dev and not (model_dev.type == dev.type == "cuda" and dev.index is None):
+        raise ValueError(f"the model is on {model_dev}, the pair runs on {dev}")
+    points, masks, features = (t.to(dev) for t in (points, masks, features))
+    if uniforms is not None:
+        uniforms = [u.to(dev) for u in uniforms]
+    if picks is not None:
+        picks = picks.to(dev)
     pyramid = build_pyramid_cfg(cfg, points, masks)
     out = model(pyramid, features)
     scores = out["scores_overlap"] * out["scores_saliency"]

@@ -19,6 +19,7 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
+from pcrcg_tpu_torch import resolve_device
 from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.models.blocks import (
     LastUnaryBlock,
@@ -263,8 +264,10 @@ class KPFCNN(nn.Module):
         return res
 
 
-def init_kpfcnn(cfg: Config, seed: int = 0, device="cpu") -> KPFCNN:
-    """A KPFCNN with seeded random weights on ``device`` (eval mode)."""
+def init_kpfcnn(cfg: Config, seed: int = 0, device=None) -> KPFCNN:
+    """A KPFCNN with seeded random weights (drawn on the CPU, so every
+    device gets the same ones) on ``device``: CUDA unless the caller names
+    the CPU.  In eval mode."""
     model = KPFCNN(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()

@@ -75,10 +75,24 @@ def test_make_pair_batch_identical():
 
 
 def test_cuda_default_raises_without_cuda(monkeypatch):
+    """Entry points default to CUDA and refuse to fall back to the CPU."""
+    from pcrcg_tpu_torch.demo import main as demo_main
+    from pcrcg_tpu_torch.eval.tester import register_pair
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    cfg = tcfg.tiny_test_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_kpfcnn(cfg)
+    model = init_kpfcnn(cfg, device="cpu")
+    pts = torch.zeros(2, 256, 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        register_pair(model, cfg, pts, torch.ones(2, 256, dtype=torch.bool), pts[..., :1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        demo_main([])
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pcrcg_tpu")

@@ -75,7 +75,7 @@ def test_state_dict_loads_strict(models):
     port = KPFCNN(tc)
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     # A fresh seeded model carries the same kernel points as the JAX init.
-    fresh = init_kpfcnn(tc, seed=0)
+    fresh = init_kpfcnn(tc, seed=0, device="cpu")
     for name, buf in fresh.named_buffers():
         np.testing.assert_array_equal(buf.numpy(), port.get_buffer(name).numpy(), err_msg=name)
 

@@ -143,7 +143,7 @@ def test_register_pair_matches_jax_end_to_end(capsys):
         port, tc, T(np.array(pts)), T(np.array(msk)), T(np.array(fts)),
         n_points=n_points, num_iterations=iters, hypothesis_chunk=chunk,
         uniforms=(T(jax_uniform(k1, (256,))), T(jax_uniform(k2, (256,)))),
-        picks=T(jax_picks(k3, n_valid, iters, chunk)),
+        picks=T(jax_picks(k3, n_valid, iters, chunk)), device="cpu",
     )
     src_pts = np.asarray(pts[0])[np.asarray(msk[0])].astype(np.float64)
     tj, tt = np.asarray(want["transform"], np.float64), got["transform"].numpy().astype(np.float64)
