@@ -273,7 +273,7 @@ class Config:
     # depth 50, 128-channel output; 18 selects the Res18UNet variant,
     # models/resnet.py:93-230).  Smaller settings exist for CI-scale
     # flagship coverage (the multi-chip dryrun runs depth 18 at 32
-    # channels so the full color path compiles inside the driver's CPU
+    # channels so the full color path compiles inside a CPU
     # time budget); in_feats_dim must equal backbone2d_channels + 1.
     backbone2d_depth: int = 50
     backbone2d_channels: int = 128

@@ -1,6 +1,6 @@
 """Where the time of one pair goes on the card.
 
-    python -m pcrcg_tpu_torch.profile [--pairs 5] [--out chiprun_out/profile.json]
+    python -m pcrcg_tpu_torch.profile [--pairs 5] [--out profile.json]
 
 Registers the in-repo assets pair at the default ``Config()`` (full width,
 seeded random weights) and reports, per pair:
