@@ -20,10 +20,11 @@
 // and K accumulators each, writing weighted[n, k, c] = sum_h w[h,k] f[h,c]
 // to an fp32 scratch of Nq x K*C.
 //
-// Phase B (sgemm_kernel): a shared-memory-tiled fp32 GEMM,
+// Phase B (sgemm_kernel of sgemm.cuh): a shared-memory-tiled fp32 GEMM,
 // out[Nq, D] = weighted[Nq, K*C] x W[K*C, D], 64 x 64 tiles, 4 x 4 outputs a
 // thread.  The W contraction is part of the TPU kernel's body, so it is
-// written here and not left to a library.
+// written here and not left to a library.  `weighted` is kept for the
+// backward (K3's dW) when the caller trains, else it is scratch.
 //
 // What bounds it on the H100: at the wide levels (C, D >= 128) the GEMM's
 // operations (2 Nq K C D: 12 GFLOP for the level-3 512 x 512 convs, 0.18 ms
@@ -34,22 +35,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "kpconv_common.cuh"
+#include "sgemm.cuh"
+
 namespace {
 
-constexpr int kGroup = 128;   // queries per tiled-search group
-constexpr int kKMax = 16;     // kernel points held per thread
+using pcrcg::kKMax;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float influence_of(float d2, int influence, float extent,
-                                              float gauss_denom) {
-  if (influence == 1) {  // linear
-    return fmaxf(__fsub_rn(1.0f, __fdiv_rn(sqrtf(fmaxf(d2, 0.0f)), extent)), 0.0f);
-  }
-  if (influence == 2) {  // gaussian
-    return expf(__fdiv_rn(-d2, gauss_denom));
-  }
-  return 1.0f;  // constant
-}
 
 __global__ void kpconv_reduce_kernel(
     const float* __restrict__ q, int nq, const float* __restrict__ s, int ns,
@@ -65,7 +57,6 @@ __global__ void kpconv_reduce_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int shadow = m_tiles * tile;
 
   for (int i = threadIdx.x; i < qpb; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
@@ -78,11 +69,7 @@ __global__ void kpconv_reduce_kernel(
     float w = 0.0f;
     int row = -1;
     if (n < nq) {
-      const int l = lidx[(size_t)n * h_count + h];
-      if (l >= 0 && l < shadow) {
-        const int r = tiles[(n / kGroup) * m_tiles + l / tile] * tile + l % tile;
-        if (r < ns) row = r;
-      }
+      row = pcrcg::support_row(lidx, tiles, n, h, h_count, m_tiles, tile, ns);
       const float qx = q[3 * (size_t)n], qy = q[3 * (size_t)n + 1], qz = q[3 * (size_t)n + 2];
       float sx = 0.0f, sy = 0.0f, sz = 0.0f;
       if (row >= 0) {
@@ -90,24 +77,8 @@ __global__ void kpconv_reduce_kernel(
         sy = s[3 * (size_t)row + 1];
         sz = s[3 * (size_t)row + 2];
       }
-      const float rx = __fsub_rn(sx, qx), ry = __fsub_rn(sy, qy), rz = __fsub_rn(sz, qz);
-      float d2 = INFINITY;
-      if (lane < k_count) {
-        const float kx = kp[3 * lane], ky = kp[3 * lane + 1], kz = kp[3 * lane + 2];
-        const float rel_sq =
-            __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz));
-        const float dot =
-            __fadd_rn(__fadd_rn(__fmul_rn(rx, kx), __fmul_rn(ry, ky)), __fmul_rn(rz, kz));
-        const float ksq =
-            __fadd_rn(__fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
-        d2 = __fadd_rn(__fsub_rn(rel_sq, __fmul_rn(2.0f, dot)), ksq);
-        w = influence_of(d2, influence, extent, gauss_denom);
-      }
-      if (closest) {
-        float m = d2;
-        for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (!(d2 <= m)) w = 0.0f;
-      }
+      w = pcrcg::lane_influence(__fsub_rn(sx, qx), __fsub_rn(sy, qy), __fsub_rn(sz, qz), kp,
+                                k_count, lane, influence, extent, gauss_denom, closest);
       float fs = 0.0f;
       if (row >= 0) {
         for (int c = lane; c < c_in; c += 32) fs += feats[(size_t)row * c_in + c];
@@ -148,62 +119,11 @@ __global__ void kpconv_reduce_kernel(
   }
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-
-// C[M, N] = A[M, K] x B[K, N], all row-major fp32.  256 threads; thread
-// (tx, ty) owns rows ty + 16 i and columns tx + 16 j (i, j < 4).
-__global__ void sgemm_kernel(int M, int N, int K, const float* __restrict__ A,
-                             const float* __restrict__ B, float* __restrict__ C) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += blockDim.x) {
-      const int r = i / kBK, kk = i - r * kBK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < kBK * kBN; i += blockDim.x) {
-      const int kk = i / kBN, cc = i - kk * kBN;
-      const int gk = k0 + kk, gc = col0 + cc;
-      Bs[kk][cc] = (gk < K && gc < N) ? B[(size_t)gk * N + gc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < N) C[(size_t)r * N + c] = acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 // q [nq, 3], s [ns, 3], feats [ns, c_in], lidx [>= nq, h_count] int32,
 // tiles [groups, m_tiles] int32, kp [k_count, 3], W [k_count * c_in, d];
-// scratch weighted [nq, k_count * c_in]; outputs out [nq, d] (before the
+// weighted [nq, k_count * c_in] (phase A's output); out [nq, d] (before the
 // division by nn) and nn [nq].  Returns cudaGetLastError() after both
 // launches on `stream`.
 extern "C" int pcrcg_kpconv_tiled(const float* q, int nq, const float* s, int ns,
@@ -234,7 +154,6 @@ extern "C" int pcrcg_kpconv_tiled(const float* q, int nq, const float* s, int ns
       gauss_denom, influence, closest, qpb, weighted, nn);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((d + kBN - 1) / kBN, (nq + kBM - 1) / kBM);
-  sgemm_kernel<<<grid, kThreads, 0, st>>>(nq, d, k_count * c_in, weighted, W, out);
-  return (int)cudaGetLastError();
+  return (int)pcrcg::launch_sgemm<false, false>(nq, d, k_count * c_in, k_count * c_in,
+                                                 weighted, W, out, st);
 }

@@ -1,0 +1,115 @@
+// Scatters of the KPConv training backward onto the support rows: K4 (the
+// feature gradient of kpconv_tiled_ad) and K5's backward (the strided
+// shortcut's max-pool).
+//
+// K4 replaces pcrcg_tpu/ops/kpconv_tiled.py::_dcand_kernel together with the
+// XLA _tile_block_scatter that followed it:
+//     ds[row(n, h), c] += dnx[n, h, c]     (shadow neighbors dropped)
+// row(n, h) is resolved from the tile-local lidx / tiles exactly as the
+// forward resolves it (kpconv_common.cuh).
+// K5 replaces pcrcg_tpu/ops/kpconv_tiled.py::_maxpool_bwd_kernel (+ the same
+// tile scatter):
+//     ds[inds[q, amax[q, c]], c] += g[q, c]   (shadow rows dropped)
+// with amax the first-maximum neighbor the forward saved, and the global
+// neighbor index taken directly (no lidx / tiles needed on a GPU).
+//
+// The TPU kernels turned the row scatter into per-group one-hot MXU
+// matmuls with bf16 hi/lo limbs, then a tile-granular one-hot matmul,
+// because TPU scatters are slow.  A GPU has native fp32 atomics in L2, so
+// both are one pass of atomicAdd: K4 with one warp per (query, neighbor),
+// lanes over channels (the dnx row is read coalesced, the ds row updated
+// coalesced); K5 with one thread per (query, channel).  The sum order
+// changes from run to run (atomics), so results are not bit-reproducible:
+// callers hold them to a relative tolerance.  A deterministic segmented
+// sum is later work.
+//
+// What bounds it on the H100: bytes.  K4 reads dnx once (545 MB for the
+// level-0 (64, 64) conv, 0.16 ms at 3.35 TB/s) and updates ds; K5 reads g
+// and amax and updates ds.  Atomic throughput on contended rows (each
+// support row is a neighbor of ~H queries) is the risk.
+#include <cuda_runtime.h>
+
+#include "kpconv_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void scatter_rows_kernel(const float* __restrict__ dnx, int nq, int h_count,
+                                    int c_in, const int* __restrict__ lidx,
+                                    const int* __restrict__ tiles, int m_tiles, int tile,
+                                    int ns, float* __restrict__ ds) {
+  const int lane = threadIdx.x & 31;
+  const long long pairs = (long long)nq * h_count;
+  const long long stride = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long p = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; p < pairs;
+       p += stride) {
+    const int n = (int)(p / h_count);
+    const int h = (int)(p - (long long)n * h_count);
+    const int row = pcrcg::support_row(lidx, tiles, n, h, h_count, m_tiles, tile, ns);
+    if (row < 0) continue;
+    const float* src = dnx + p * c_in;
+    float* dst = ds + (size_t)row * c_in;
+    for (int c = lane; c < c_in; c += 32) atomicAdd(dst + c, src[c]);
+  }
+}
+
+__global__ void maxpool_bwd_kernel(const float* __restrict__ g,
+                                   const long long* __restrict__ amax,
+                                   const long long* __restrict__ inds, int nq, int h_count,
+                                   int c_in, int ns, float* __restrict__ ds) {
+  const size_t total = (size_t)nq * c_in;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t qi = i / c_in;
+    const int c = (int)(i - qi * c_in);
+    const long long h = amax[i];
+    if (h < 0 || h >= h_count) continue;
+    const long long r = inds[qi * h_count + h];
+    if (r >= 0 && r < ns) atomicAdd(ds + (size_t)r * c_in + c, g[i]);
+  }
+}
+
+// Blocks for one thread per work item, capped at kBlocksPerSm blocks per SM
+// of the current device (the kernels' grid-stride loops take the rest).
+constexpr int kBlocksPerSm = 32;
+
+cudaError_t grid_for(size_t work, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  size_t blocks = (work + kThreads - 1) / kThreads;
+  const size_t cap = (size_t)sms * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  *grid = blocks < 1 ? 1 : (int)blocks;
+  return err;
+}
+
+}  // namespace
+
+// K4: dnx [nq, h_count, c_in] f32, lidx [>= nq, h_count] int32, tiles
+// [groups, m_tiles] int32 -> ds [ns, c_in] f32, which the caller zeroes.
+extern "C" int pcrcg_scatter_ds_feats(const float* dnx, int nq, int h_count, int c_in,
+                                      const int* lidx, const int* tiles, int m_tiles,
+                                      int tile, int ns, float* ds, void* stream) {
+  if (nq <= 0 || h_count <= 0 || c_in <= 0) return 0;
+  int grid = 0;
+  if (cudaError_t err = grid_for((size_t)nq * h_count * 32, &grid)) return (int)err;
+  scatter_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      dnx, nq, h_count, c_in, lidx, tiles, m_tiles, tile, ns, ds);
+  return (int)cudaGetLastError();
+}
+
+// K5 backward: g [nq, c_in] f32, amax [nq, c_in] int64 (neighbor slot of the
+// first maximum), inds [nq, h_count] int64 (global rows, >= ns = shadow) ->
+// ds [ns, c_in] f32, which the caller zeroes.
+extern "C" int pcrcg_maxpool_bwd(const float* g, const long long* amax, const long long* inds,
+                                 int nq, int h_count, int c_in, int ns, float* ds,
+                                 void* stream) {
+  if (nq <= 0 || c_in <= 0) return 0;
+  int grid = 0;
+  if (cudaError_t err = grid_for((size_t)nq * c_in, &grid)) return (int)err;
+  maxpool_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      g, amax, inds, nq, h_count, c_in, ns, ds);
+  return (int)cudaGetLastError();
+}

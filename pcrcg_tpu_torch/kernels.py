@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``.  Libraries go to
 ``build/pcrcg_tpu_torch/`` under the repository root (git-ignored), named
-by a hash of the source, so an edited source is rebuilt and an unchanged
-one is built once.  ``build_all`` starts one ``nvcc`` per source at the
-same time.  Nothing is compiled at import: the first launch (or an explicit
-``build_all``) builds.
+by a hash of the source and the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt and an unchanged one is built once.
+``build_all`` starts one ``nvcc`` per source at the same time.  Nothing is
+compiled at import: the first launch (or an explicit ``build_all``)
+builds.
 """
 from __future__ import annotations
 
@@ -23,13 +24,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pcrcg_tpu_torch"
-SOURCES = ("search_distances", "kpconv_tiled")
+SOURCES = ("search_distances", "kpconv_tiled", "kpconv_bwd", "tile_scatter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# CUDA launches per kernel (K1..K5 of the kernel table in PERF.md): each
+# wrapper adds one where it launches its kernel; plain versions never count.
+LAUNCHES: Dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+
+
+def count_launch(kernel_id: str) -> None:
+    LAUNCHES[kernel_id] += 1
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _nvcc() -> str:
@@ -43,7 +57,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -91,6 +108,20 @@ def library(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def bind(name: str, fn_name: str, signature: str):
+    """The C function ``fn_name`` of ``csrc/<name>.cu`` with its argument
+    types declared from ``signature``, one letter per argument (p pointer
+    or stream, i int, f float); it returns a CUDA error code (int)."""
+    fn = getattr(library(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[ch] for ch in signature]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

@@ -13,6 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from pcrcg_tpu_torch.models.kpconv import KPConv
+from pcrcg_tpu_torch.ops.kpconv_tiled import max_pool_tiled
 from pcrcg_tpu_torch.ops.masked import masked_instance_norm, pad_gather
 
 
@@ -29,8 +30,15 @@ def init_dense(layer: nn.Module, generator: torch.Generator) -> None:
 
 def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     """x [B,Ns,C], inds [B,Nq,H] (pad = Ns) -> [B,Nq,C]; shadow neighbors
-    contribute a zero row (reference blocks.py:86-103)."""
-    return torch.stack([pad_gather(x[b], inds[b], 0.0) for b in range(x.shape[0])]).amax(2)
+    contribute a zero row (reference blocks.py:86-103).  The B clouds stack
+    into one ``max_pool_tiled`` call (shadows map past the stack), whose
+    gradient goes to the first maximal neighbor (K5 on the card), as the
+    JAX package's strided shortcut does (pcrcg_tpu/models/blocks.py:195-211)."""
+    b, ns, c = x.shape
+    nq = inds.shape[1]
+    off = (torch.arange(b, device=inds.device, dtype=inds.dtype) * ns)[:, None, None]
+    inds_st = torch.where(inds >= ns, b * ns, inds + off).reshape(b * nq, -1).contiguous()
+    return max_pool_tiled(x.reshape(b * ns, c), inds_st).reshape(b, nq, c)
 
 
 def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -115,8 +123,7 @@ class ResnetBottleneckBlock(nn.Module):
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, tiled_meta):
         y = self.unary1(x, s_mask) if self.unary1 is not None else x
         y = self.KPConv(q_pts, s_pts, y, tiled_meta)
-        # Strided: the shortcut is a plain gather + max over the pool
-        # neighbors (its backward kernel is training work).
+        # Strided: the shortcut is a max over the pool neighbors.
         shortcut = max_pool(x, neighb_inds) if self.strided else x
         y = F.leaky_relu(self.norm_conv(y, q_mask), 0.1)
         y = self.unary2(y, q_mask)

@@ -8,9 +8,10 @@ contraction, division by the reference's positive-feature-sum neighbor
 count (reference models/blocks.py:284-372).  It is the reference the
 candidate-tile kernel is tested against.
 
-The ``KPConv`` module runs the candidate-tile route (K2,
-``ops/kpconv_tiled.py``) with the tile-local metadata of the tiled search,
-both clouds in one launch.
+The ``KPConv`` module runs the candidate-tile route with the tile-local
+metadata of the tiled search, both clouds in one launch:
+``ops/kpconv_tiled.py::kpconv_tiled_ad``, K2 forward and, when a gradient
+is taken, K3 + K4 backward.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from torch import nn
 
 from pcrcg_tpu_torch.geom.kernel_points import layer_kernel_points
-from pcrcg_tpu_torch.ops.kpconv_tiled import _influence_fn, kpconv_tiled
+from pcrcg_tpu_torch.ops.kpconv_common import influence_fn
+from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_ad
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, pad_gather
 
 
@@ -30,7 +32,7 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: floa
     neighbors = pad_gather(s_pts, neighb_inds, fill_value=PAD_COORD) - q_pts[:, None, :]
     diff = neighbors[:, :, None, :] - kernel_points[None, None, :, :]
     sq_distances = (diff * diff).sum(-1)  # [Nq,H,K]
-    all_weights = _influence_fn(sq_distances, kp_extent, influence)
+    all_weights = influence_fn(sq_distances, kp_extent, influence)
     if aggregation == "closest":
         nearest = sq_distances.argmin(-1)
         all_weights = all_weights * nn.functional.one_hot(
@@ -103,10 +105,10 @@ class KPConv(nn.Module):
         lidx, tiles, ns_pad, nq_pad = _stack_tiled(tiled_meta, nq, ns, self.tile)
         if self.ones_features:
             x = torch.ones_like(s_pts[..., :1])
-        out, nn_count = kpconv_tiled(
-            _pad_to(q_pts, nq_pad).reshape(b * nq_pad, 3),
-            _pad_to(s_pts, ns_pad).reshape(b * ns_pad, 3),
-            _pad_to(x.float(), ns_pad).reshape(b * ns_pad, -1),
+        out, nn_count = kpconv_tiled_ad(
+            _pad_to(q_pts, nq_pad).reshape(b * nq_pad, 3).contiguous(),
+            _pad_to(s_pts, ns_pad).reshape(b * ns_pad, 3).contiguous(),
+            _pad_to(x.float(), ns_pad).reshape(b * ns_pad, -1).contiguous(),
             lidx, tiles, self.kernel_points, self.weights.contiguous(),
             float(self.kp_extent), self.influence, self.aggregation, tile=self.tile,
         )

@@ -1,10 +1,11 @@
-"""Candidate-tile KPConv forward (K2).
+"""Candidate-tile KPConv: forward (K2), its autograd (backward K3 + K4), and
+the strided-shortcut max-pool with its backward (K5).
 
-Counterpart of ``pcrcg_tpu/ops/kpconv_tiled.py::kpconv_tiled``.  The
-neighbors of query n are given tile-locally, as the tiled search returns
-them: ``lidx[n, h]`` is a position inside the M·tile candidate block of
-n's 128-query group, whose tiles are ``tiles[n // 128]``; ``M·tile`` is
-the shadow (zero feature, rel = −q).  Per query:
+Counterpart of ``pcrcg_tpu/ops/kpconv_tiled.py``.  The neighbors of query
+n are given tile-locally, as the tiled search returns them: ``lidx[n, h]``
+is a position inside the M·tile candidate block of n's 128-query group,
+whose tiles are ``tiles[n // 128]``; ``M·tile`` is the shadow (zero
+feature, rel = −q).  Per query:
 
     rel[h]      = s[row(n, h)] − q[n]
     w[h, k]     = influence(|rel[h] − kp[k]|²)        (closest: nearest kp only)
@@ -13,132 +14,212 @@ the shadow (zero feature, rel = −q).  Per query:
     nn[n]       = max(1, #{h : Σ_c feats[row(n, h), c] > 0})
 
 ``out`` is returned before the division by ``nn``, the contract of the
-JAX kernel.  On a CUDA tensor ``kpconv_tiled`` launches
-``csrc/kpconv_tiled.cu`` (gather + influence + reduce, then a hand-written
-fp32 GEMM for the W contraction); on a CPU tensor it runs the plain
-version below.
+JAX kernel.  Each wrapper runs its plain PyTorch version for a CPU tensor
+and launches its CUDA kernel for a CUDA tensor, never falling back:
+
+* ``kpconv_tiled`` — K2, ``csrc/kpconv_tiled.cu`` (gather + influence +
+  reduce, then a hand-written fp32 GEMM for the W contraction);
+* ``scatter_ds_feats`` — K4, ``csrc/tile_scatter.cu``: the feature
+  gradient ``ds[row(n, h)] += dnx[n, h]``;
+* ``maxpool_bwd`` — K5, ``csrc/tile_scatter.cu``: the max-pool gradient
+  to the first-maximum neighbor.
+
+``kpconv_tiled_ad`` is the differentiable conv (gradients to the features
+and W only, as the JAX package's ``stop_gradient``s give); its backward
+runs K3 (``ops/kpconv_fused.py::kpconv_bwd``) and then K4.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from pcrcg_tpu_torch import kernels
-
-_T = 128  # queries per group (the tiled search's group size)
-_K_MAX = 16  # kernel points the CUDA kernel holds per thread
-_INFLUENCE = {"constant": 0, "linear": 1, "gaussian": 2}
-LAUNCHES = 0  # CUDA launches of the kernel (the plain version does not count)
-
-
-def _influence_fn(d2: torch.Tensor, kp_extent: float, influence: str) -> torch.Tensor:
-    if influence == "linear":
-        return torch.clamp(1.0 - torch.sqrt(d2.clamp_min(0.0)) / kp_extent, min=0.0)
-    if influence == "gaussian":
-        sigma = kp_extent * 0.3
-        return torch.exp(-d2 / (2.0 * sigma**2 + 1e-9))
-    if influence == "constant":
-        return torch.ones_like(d2)
-    raise ValueError(f"Unknown KP influence: {influence}")
-
-
-def _compute_wgt(rel: torch.Tensor, kernel_points: torch.Tensor, kp_extent: float,
-                 influence: str, aggregation: str) -> torch.Tensor:
-    """Influence weights [..., H, K] from rel [..., H, 3] with the expanded
-    |rel|² − 2 rel·kp + |kp|² distance of the JAX kernels."""
-    rx, ry, rz = (rel[..., i, None] for i in range(3))
-    kx, ky, kz = kernel_points.unbind(-1)
-    rel_sq = rx * rx + ry * ry + rz * rz
-    d2 = rel_sq - 2.0 * (rx * kx + ry * ky + rz * kz) + (kx * kx + ky * ky + kz * kz)
-    w = _influence_fn(d2, kp_extent, influence)
-    if aggregation == "closest":
-        w = torch.where(d2 <= d2.amin(-1, keepdim=True), w, 0.0)
-    elif aggregation != "sum":
-        raise ValueError(f"Unknown aggregation mode: {aggregation}")
-    return w
-
-
-def _support_rows(lidx: torch.Tensor, tiles: torch.Tensor, nq: int, ns: int, tile: int):
-    """Global support row per (query, neighbor) and its validity."""
-    m_tiles = tiles.shape[1]
-    l = lidx[:nq].long()
-    group = (torch.arange(nq, device=lidx.device) // _T)[:, None]
-    real = l < m_tiles * tile
-    tile_id = tiles.long()[group, (l // tile).clamp(max=m_tiles - 1)]
-    row = tile_id * tile + l % tile
-    valid = real & (row < ns)
-    return torch.where(valid, row, 0), valid
+from pcrcg_tpu_torch.ops import kpconv_fused
+from pcrcg_tpu_torch.ops.kpconv_common import (
+    GROUP,
+    INFLUENCE,
+    check_geometry,
+    compute_wgt,
+    neighbor_rel,
+    support_rows,
+)
+from pcrcg_tpu_torch.ops.masked import pad_gather
 
 
 def kpconv_tiled_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
                        kp_extent: float, influence: str = "linear",
-                       aggregation: str = "sum", tile: int = 128):
-    """Plain PyTorch version of the kernel: -> (out [Nq, D], nn [Nq])."""
-    nq, ns = q_pts.shape[0], s_pts.shape[0]
+                       aggregation: str = "sum", tile: int = 128,
+                       keep_weighted: bool = False):
+    """Plain PyTorch version of the kernel: -> (out [Nq, D], nn [Nq]), and
+    weighted [Nq, K·C] with ``keep_weighted``."""
+    nq = q_pts.shape[0]
     k_count, c_in, d = weights.shape
-    row, valid = _support_rows(lidx, tiles, nq, ns, tile)
-    vf = valid[..., None].to(s_pts.dtype)
-    rel = s_pts[row] * vf - q_pts[:, None, :]  # shadow: -q
+    rel, row, vf = neighbor_rel(q_pts, s_pts, lidx, tiles, tile)
     feats = s_feats[row] * vf  # [Nq, H, C], shadow rows zero
-    w = _compute_wgt(rel, kernel_points, kp_extent, influence, aggregation)
+    w = compute_wgt(rel, kernel_points, kp_extent, influence, aggregation)
     weighted = torch.einsum("nhk,nhc->nkc", w, feats).reshape(nq, k_count * c_in)
     out = weighted @ weights.reshape(k_count * c_in, d)
     nn = (feats.sum(-1) > 0.0).sum(-1).clamp_min(1).to(out.dtype)
-    return out, nn
+    return (out, nn, weighted) if keep_weighted else (out, nn)
 
 
 def kpconv_tiled(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
                  kp_extent: float, influence: str = "linear",
-                 aggregation: str = "sum", tile: int = 128):
+                 aggregation: str = "sum", tile: int = 128, keep_weighted: bool = False):
     """q_pts [Nq,3], s_pts [Ns,3], s_feats [Ns,C] f32, lidx [G·128,H] int32,
     tiles [G,M] int32, kernel_points [K,3], weights [K,C,D] ->
-    (out [Nq,D] before the ÷nn, nn [Nq] f32)."""
+    (out [Nq,D] before the ÷nn, nn [Nq] f32), plus phase A's weighted
+    [Nq, K·C] with ``keep_weighted`` (the backward's dW input)."""
     if q_pts.device.type == "cpu":
         return kpconv_tiled_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
-                                  weights, kp_extent, influence, aggregation, tile)
-    global LAUNCHES
-    dev = q_pts.device
+                                  weights, kp_extent, influence, aggregation, tile,
+                                  keep_weighted)
+    dev = check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregation)
     nq, ns = q_pts.shape[0], s_pts.shape[0]
     k_count, c_in, d = weights.shape
-    h_count = lidx.shape[1]
-    g_count, m_tiles = tiles.shape
-    if k_count > _K_MAX:
-        raise ValueError(f"the kernel holds at most {_K_MAX} kernel points, got {k_count}")
-    if lidx.shape[0] != g_count * _T or nq > g_count * _T:
-        raise ValueError(f"lidx {tuple(lidx.shape)} / {nq} queries do not fit {g_count} groups")
-    if influence not in _INFLUENCE or aggregation not in ("sum", "closest"):
-        raise ValueError(f"unsupported influence/aggregation: {influence}/{aggregation}")
-    f32, i32 = torch.float32, torch.int32
-    kernels.require(q_pts, "q_pts", f32, dev, (nq, 3))
-    kernels.require(s_pts, "s_pts", f32, dev, (ns, 3))
-    kernels.require(s_feats, "s_feats", f32, dev, (ns, c_in))
-    kernels.require(lidx, "lidx", i32, dev)
-    kernels.require(tiles, "tiles", i32, dev)
-    kernels.require(kernel_points, "kernel_points", f32, dev, (k_count, 3))
-    kernels.require(weights, "weights", f32, dev)
-    weighted = torch.empty(nq, k_count * c_in, device=dev, dtype=f32)  # scratch
-    out = torch.empty(nq, d, device=dev, dtype=f32)
-    nn = torch.empty(nq, device=dev, dtype=f32)
+    kernels.require(s_feats, "s_feats", torch.float32, dev, (ns, c_in))
+    kernels.require(weights, "weights", torch.float32, dev)
+    weighted = torch.empty(nq, k_count * c_in, device=dev, dtype=torch.float32)
+    out = torch.empty(nq, d, device=dev, dtype=torch.float32)
+    nn = torch.empty(nq, device=dev, dtype=torch.float32)
     sigma = kp_extent * 0.3
-    err = _lib().pcrcg_kpconv_tiled(
+    err = kernels.bind("kpconv_tiled", "pcrcg_kpconv_tiled", "pipipipipiipipiffiipppp")(
         q_pts.data_ptr(), nq, s_pts.data_ptr(), ns, s_feats.data_ptr(), c_in,
-        lidx.data_ptr(), h_count, tiles.data_ptr(), m_tiles, tile,
+        lidx.data_ptr(), lidx.shape[1], tiles.data_ptr(), tiles.shape[1], tile,
         kernel_points.data_ptr(), k_count, weights.data_ptr(), d,
-        float(kp_extent), float(2.0 * sigma**2 + 1e-9), _INFLUENCE[influence],
+        float(kp_extent), float(2.0 * sigma**2 + 1e-9), INFLUENCE[influence],
         int(aggregation == "closest"), weighted.data_ptr(), out.data_ptr(),
         nn.data_ptr(), kernels.stream_handle(dev),
     )
     kernels.check_launch(err, "kpconv_tiled")
-    LAUNCHES += 1
-    return out, nn
+    kernels.count_launch("K2")
+    return (out, nn, weighted) if keep_weighted else (out, nn)
 
 
-def _lib():
-    lib = kernels.library("kpconv_tiled")
-    fn = lib.pcrcg_kpconv_tiled
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, i, p, i, p, i, i, p, i, p, i, f, f, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return lib
+def scatter_ds_feats_plain(dnx, lidx, tiles, ns: int, tile: int = 128):
+    """Plain PyTorch version of K4: dnx [Nq, H, C] -> ds [Ns, C] with
+    ds[row(n, h)] = Σ dnx[n, h] over the real neighbors."""
+    nq, _, c_in = dnx.shape
+    row, valid = support_rows(lidx, tiles, nq, ns, tile)
+    ds = torch.zeros(ns, c_in, device=dnx.device, dtype=dnx.dtype)
+    return ds.index_add_(0, row[valid], dnx[valid])
+
+
+def scatter_ds_feats(dnx, lidx, tiles, ns: int, tile: int = 128):
+    """K4: dnx [Nq, H, C] f32, lidx [G·128, H] int32, tiles [G, M] int32 ->
+    ds_feats [Ns, C] f32 (atomic sums: the order varies run to run)."""
+    if dnx.device.type == "cpu":
+        return scatter_ds_feats_plain(dnx, lidx, tiles, ns, tile)
+    dev = dnx.device
+    nq, h_count, c_in = dnx.shape
+    kernels.require(dnx, "dnx", torch.float32, dev)
+    kernels.require(lidx, "lidx", torch.int32, dev)
+    kernels.require(tiles, "tiles", torch.int32, dev)
+    if lidx.shape[1] != h_count or lidx.shape[0] < nq or nq > tiles.shape[0] * GROUP:
+        raise ValueError(f"dnx {tuple(dnx.shape)} does not fit lidx {tuple(lidx.shape)} "
+                         f"/ tiles {tuple(tiles.shape)}")
+    ds = torch.zeros(ns, c_in, device=dev, dtype=torch.float32)
+    err = kernels.bind("tile_scatter", "pcrcg_scatter_ds_feats", "piiippiiipp")(
+        dnx.data_ptr(), nq, h_count, c_in, lidx.data_ptr(), tiles.data_ptr(),
+        tiles.shape[1], tile, ns, ds.data_ptr(), kernels.stream_handle(dev),
+    )
+    kernels.check_launch(err, "scatter_ds_feats")
+    kernels.count_launch("K4")
+    return ds
+
+
+class _KPConvTiledFn(torch.autograd.Function):
+    """K2 forward keeping ``weighted``; backward K3 (dW, dnx) then K4."""
+
+    @staticmethod
+    def forward(ctx, q_pts, s_pts, s_feats, weights, lidx, tiles, kernel_points,
+                kp_extent, influence, aggregation, tile):
+        out, nn, weighted = kpconv_tiled(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
+                                         weights, kp_extent, influence, aggregation, tile,
+                                         keep_weighted=True)
+        ctx.save_for_backward(q_pts, s_pts, lidx, tiles, kernel_points, weights, weighted)
+        ctx.conf = (kp_extent, influence, aggregation, tile)
+        ctx.mark_non_differentiable(nn)
+        return out, nn
+
+    @staticmethod
+    def backward(ctx, g_out, _g_nn):
+        q_pts, s_pts, lidx, tiles, kernel_points, weights, weighted = ctx.saved_tensors
+        kp_extent, influence, aggregation, tile = ctx.conf
+        need_feats = ctx.needs_input_grad[2]
+        dw, dnx = kpconv_fused.kpconv_bwd(
+            q_pts, s_pts, lidx, tiles, kernel_points, weights, g_out.contiguous(), weighted,
+            kp_extent, influence, aggregation, tile, need_dnx=need_feats,
+        )
+        ds = scatter_ds_feats(dnx, lidx, tiles, s_pts.shape[0], tile) if need_feats else None
+        return (None, None, ds, dw if ctx.needs_input_grad[3] else None,
+                None, None, None, None, None, None, None)
+
+
+def kpconv_tiled_ad(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
+                    kp_extent: float, influence: str = "linear",
+                    aggregation: str = "sum", tile: int = 128):
+    """Differentiable ``kpconv_tiled``: gradients flow to ``s_feats`` and
+    ``weights`` only (geometry and kernel points are fixed, nn is a count),
+    as the JAX package's ``kpconv_tiled_ad``.  Without a gradient to take
+    no graph is built and the kept ``weighted`` is freed on return."""
+    return _KPConvTiledFn.apply(q_pts, s_pts, s_feats, weights, lidx, tiles, kernel_points,
+                                float(kp_extent), influence, aggregation, tile)
+
+
+def maxpool_bwd_plain(g, amax, inds, ns: int):
+    """Plain PyTorch version of K5's backward: g [Nq, C], amax [Nq, C] int64
+    (neighbor slot of the first maximum), inds [Nq, H] int64 (pad ≥ Ns) ->
+    ds [Ns, C] with ds[inds[q, amax[q, c]], c] += g[q, c], shadows dropped."""
+    c_in = g.shape[1]
+    rows = inds.gather(1, amax)  # [Nq, C]
+    valid = (rows >= 0) & (rows < ns)
+    flat = rows * c_in + torch.arange(c_in, device=g.device)
+    ds = torch.zeros(ns * c_in, device=g.device, dtype=g.dtype)
+    return ds.index_add_(0, flat[valid], g[valid]).reshape(ns, c_in)
+
+
+def maxpool_bwd(g, amax, inds, ns: int):
+    """K5: g [Nq, C] f32, amax [Nq, C] int64, inds [Nq, H] int64 -> ds [Ns, C]
+    f32 (atomic sums: the order varies run to run)."""
+    if g.device.type == "cpu":
+        return maxpool_bwd_plain(g, amax, inds, ns)
+    dev = g.device
+    nq, c_in = g.shape
+    kernels.require(g, "g", torch.float32, dev)
+    kernels.require(amax, "amax", torch.int64, dev, (nq, c_in))
+    kernels.require(inds, "inds", torch.int64, dev)
+    if inds.shape[0] != nq:
+        raise ValueError(f"inds {tuple(inds.shape)} does not fit g {tuple(g.shape)}")
+    ds = torch.zeros(ns, c_in, device=dev, dtype=torch.float32)
+    err = kernels.bind("tile_scatter", "pcrcg_maxpool_bwd", "pppiiiipp")(
+        g.data_ptr(), amax.data_ptr(), inds.data_ptr(), nq, inds.shape[1], c_in, ns,
+        ds.data_ptr(), kernels.stream_handle(dev),
+    )
+    kernels.check_launch(err, "maxpool_bwd")
+    kernels.count_launch("K5")
+    return ds
+
+
+class _MaxPoolTiledFn(torch.autograd.Function):
+    """Gather + max over the neighbors (shadow rows are 0); backward K5 to
+    the first maximum."""
+
+    @staticmethod
+    def forward(ctx, x, inds):
+        out, amax = pad_gather(x, inds, 0.0).max(dim=1)  # first maximum on ties
+        ctx.save_for_backward(amax, inds)
+        ctx.ns = x.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        amax, inds = ctx.saved_tensors
+        return maxpool_bwd(g.contiguous(), amax, inds, ctx.ns), None
+
+
+def max_pool_tiled(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """Strided-shortcut max-pool: x [Ns, C], inds [Nq, H] int64 (pad ≥ Ns)
+    -> [Nq, C].  Its gradient goes whole to the first maximal neighbor
+    (the JAX package's ``max_pool_tiled`` / ``jnp.argmax`` rule), through
+    K5 on the card."""
+    return _MaxPoolTiledFn.apply(x, inds)

@@ -16,15 +16,12 @@ near-tied neighbors as the JAX package does.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from pcrcg_tpu_torch import kernels
 from pcrcg_tpu_torch.ops.neighbors import _fma, sq_norm
 
 _T = 128  # queries per group
-LAUNCHES = 0  # CUDA launches of the kernel (the plain version does not count)
 
 
 def pack_supports_tile_major(supports: torch.Tensor, support_mask: torch.Tensor,
@@ -61,7 +58,6 @@ def tiled_candidate_distances(queries: torch.Tensor, supa: torch.Tensor,
     supa [n_tiles,4,tile] f32, sel [G,M] int32 -> d2 [G·128, M·tile] f32."""
     if queries.device.type == "cpu":
         return tiled_candidate_distances_plain(queries, supa, sel)
-    global LAUNCHES
     dev = queries.device
     g_count, m_tiles = sel.shape
     n_tiles, rows, tile = supa.shape
@@ -72,21 +68,10 @@ def tiled_candidate_distances(queries: torch.Tensor, supa: torch.Tensor,
     kernels.require(supa, "supa", torch.float32, dev)
     kernels.require(sel, "sel", torch.int32, dev)
     d2 = torch.empty(g_count * _T, m_tiles * tile, device=dev, dtype=torch.float32)
-    lib = _lib()
-    err = lib.pcrcg_tiled_distances(
+    err = kernels.bind("search_distances", "pcrcg_tiled_distances", "pipipiiipp")(
         queries.data_ptr(), nq, supa.data_ptr(), n_tiles, sel.data_ptr(),
         g_count, m_tiles, tile, d2.data_ptr(), kernels.stream_handle(dev),
     )
     kernels.check_launch(err, "tiled_candidate_distances")
-    LAUNCHES += 1
+    kernels.count_launch("K1")
     return d2
-
-
-def _lib():
-    lib = kernels.library("search_distances")
-    fn = lib.pcrcg_tiled_distances
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
