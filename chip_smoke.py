@@ -31,9 +31,24 @@ Phases, each printed as it completes:
 6. agree-train — at the small size, the CUDA path and the CPU plain path
                give the same loss terms, gradients and parameters after two
                SGD steps, with the same weights and the same draws.
+7. kernels-untiled — as 2, for the untiled routes: K6 / K7 in a serving
+               forward under ``Config(kpconv_tiled=False)``, K8 under
+               ``Config(kpconv_impl="reduce")``, K3's gathered entry in the
+               backward of one untiled ``train_step`` (nn equal on >= 1 -
+               1e-4 of the queries, as for K2).
+8. path-untiled, path-reduce — 3 on those routes: K6 8 and K7 3 launches
+               per pair and K2 none; K8 10 per pair.
+9. routes   — the same weights and pyramid through the tiled, untiled and
+               reduce routes at full width: descriptor cosine > 0.999,
+               scores within 1e-3 (one function in three summation orders).
+10. train-untiled — 5 under ``kpconv_tiled=False``: K6, K7 and K3 launched,
+               K2 and K5 not; the gathers' feature gradient is a plain
+               ``index_add_`` (the backward of ``index_select``).
+11. agree-untiled — 4 and 6 once more under ``kpconv_tiled=False``.
 
 Then it prints the card's ``name, power.limit``, one JSON line with every
-kernel's numbers (launches: the [train] run's), and as its last line
+kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
+entry from [train-untiled], K8 from [path-reduce]), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, without CUDA or without the
 package beside it, and on any failed check.
@@ -74,7 +89,28 @@ KERNELS = {
         source="pcrcg_tpu_torch/csrc/tile_scatter.cu",
         replaces="pcrcg_tpu/ops/kpconv_tiled.py:595",
     ),
+    "K3g": dict(
+        name="kpconv_fused_bwd", route="cuda",
+        source="pcrcg_tpu_torch/csrc/kpconv_bwd.cu",
+        replaces="pcrcg_tpu/ops/kpconv_fused.py:450",
+    ),
+    "K6": dict(
+        name="kpconv_fused", route="cuda",
+        source="pcrcg_tpu_torch/csrc/kpconv_fused.cu",
+        replaces="pcrcg_tpu/ops/kpconv_fused.py:86",
+    ),
+    "K7": dict(
+        name="kpconv_fused_merged", route="cuda",
+        source="pcrcg_tpu_torch/csrc/kpconv_fused.cu",
+        replaces="pcrcg_tpu/ops/kpconv_fused.py:162",
+    ),
+    "K8": dict(
+        name="kpconv_weighted_reduce", route="cuda",
+        source="pcrcg_tpu_torch/csrc/kpconv_reduce.cu",
+        replaces="pcrcg_tpu/ops/kpconv_pallas.py:37",
+    ),
 }
+FULL_SHAPES = ((1, 128), (64, 64), (128, 128), (256, 256), (512, 512))
 
 
 class SmokeFailure(RuntimeError):
@@ -398,11 +434,193 @@ def phase_k5(calls):
     return _scatter_phase("K5", calls, maxpool_bwd, maxpool_bwd_plain, library, count)
 
 
-def phase_path(cfg, batch, model):
+def record_untiled_inputs(batch, model_untiled, cfg_untiled, model_reduce, cfg_reduce):
+    """K6 / K7 arguments of one untiled serving forward, K8's of one on the
+    reduce route."""
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    import pcrcg_tpu_torch.ops.kpconv_pallas as kr_mod
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+
+    def forward(model, cfg):
+        def run():
+            with torch.no_grad():
+                model(build_pyramid_cfg(cfg, batch.points[0], batch.masks[0]),
+                      batch.features[0])
+        return run
+
+    calls = record_calls(forward(model_untiled, cfg_untiled),
+                         {"K6": (kf_mod, "kpconv_fused"), "K7": (kf_mod, "kpconv_fused_merged")})
+    calls.update(record_calls(forward(model_reduce, cfg_reduce),
+                              {"K8": (kr_mod, "kpconv_weighted_reduce")}))
+    return calls
+
+
+def real_slots(gathered, channel_dim):
+    """(query, neighbor) slots whose gathered row is not all zero: the real
+    neighbors (a shadow gathers zeros; the merged gather's real rows carry
+    their coordinates)."""
+    return int((gathered != 0).any(channel_dim).sum())
+
+
+def _gathered_conv_phase(key, calls, kernel, plain, shapes):
+    """K6 / K7: each recorded call against its plain version (outputs after
+    the ÷nn on the queries whose counts agree, which must be >= 1 - 1e-4 of
+    them), then kernel and plain version timed beside the bound."""
+    import torch
+
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    seen = set()
+    for i, (args, kw) in enumerate(calls):
+        feats_t, kp, w = args[1], args[2], args[3]
+        out, nn = kernel(*args, **kw)
+        p_out, p_nn = plain(*args, **kw)
+        torch.cuda.synchronize()
+        same = nn == p_nn
+        check(float(same.float().mean()) >= 1 - 1e-4, f"{key} call {i}: neighbor counts differ")
+        err, rel = rel_err((out / nn[:, None])[same], (p_out / p_nn[:, None])[same])
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        check(rel <= 1e-4, f"{key} call {i}: max relative error {rel}")
+        k_count, c_w, d = w.shape
+        h, _, n = feats_t.shape
+        n_real = real_slots(feats_t, 1)
+        # K7's merged gather carries 8 rows before the C features: only the
+        # 3 coordinate rows are needed, and W8's 8 zero rows add no work.
+        c_in, rows = (c_w - 8, c_w - 5) if key == "K7" else (c_w, c_w)
+        flops = 2.0 * n_real * k_count * (c_in + 12) + 2.0 * n * k_count * c_in * d
+        nbytes = 4 * (args[0].numel() + h * rows * n + kp.numel() + k_count * c_in * d
+                      + n * (d + 1))
+        ms = time_ms(lambda: kernel(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw), iters=3)
+        b_ms, b_by = bound(nbytes, flops)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
+            res[k] += val
+        seen.add((c_in, d))
+        print(f"  {key} call {i}: N={n} H={h} (C,D)=({c_in},{d}) max|d|={err:.3e} rel={rel:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    for need in shapes:
+        check(need in seen, f"{key}: shape {need} not exercised")
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+    # No single PyTorch call computes the influences, the reduce and the W product.
+    res["library_ms"] = None
+    return res
+
+
+def phase_k6(calls):
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused, kpconv_fused_plain
+
+    return _gathered_conv_phase("K6", calls, kpconv_fused, kpconv_fused_plain, FULL_SHAPES)
+
+
+def phase_k7(calls):
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused_merged, kpconv_fused_merged_plain
+
+    return _gathered_conv_phase("K7", calls, kpconv_fused_merged, kpconv_fused_merged_plain,
+                                FULL_SHAPES[1:4])
+
+
+def phase_k8(calls):
+    import torch
+    from pcrcg_tpu_torch.ops.kpconv_pallas import (
+        kpconv_weighted_reduce, kpconv_weighted_reduce_plain,
+    )
+
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    seen = set()
+    for i, (args, kw) in enumerate(calls):
+        rel, nx, kp = args[:3]
+        weighted, nn = kpconv_weighted_reduce(*args, **kw)
+        p_weighted, p_nn = kpconv_weighted_reduce_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(float((nn == p_nn).float().mean()) >= 1 - 1e-4, f"K8 call {i}: counts differ")
+        err, rel_e = rel_err(weighted, p_weighted)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        check(rel_e <= 1e-4, f"K8 call {i}: max relative error {rel_e}")
+        n, h, c_in = nx.shape
+        k_count = kp.shape[0]
+        flops = 2.0 * real_slots(nx, 2) * k_count * (c_in + 12)
+        nbytes = 4 * (rel.numel() + nx.numel() + kp.numel() + weighted.numel() + n)
+        del weighted, p_weighted
+        ms = time_ms(lambda: kpconv_weighted_reduce(*args, **kw))
+        plain_ms = time_ms(lambda: kpconv_weighted_reduce_plain(*args, **kw), iters=3)
+        b_ms, b_by = bound(nbytes, flops)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
+            res[k] += val
+        seen.add(c_in)
+        print(f"  K8 call {i}: N={n} H={h} C={c_in} max|d|={err:.3e} rel={rel_e:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    for need in (64, 128, 256, 512):
+        check(need in seen, f"K8: width {need} not exercised")
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+    # No single PyTorch call computes the influences and the weighted reduce.
+    res["library_ms"] = None
+    return res
+
+
+def record_gathered_backward_inputs(cfg, batch, state, generator):
+    """K3's gathered-entry arguments in one untiled ``train_step``."""
+    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    from pcrcg_tpu_torch.train.step import train_step
+
+    return record_calls(lambda: train_step(state, cfg, batch, generator=generator),
+                        {"K3g": (kf_mod, "kpconv_fused_bwd")})
+
+
+def phase_k3g(calls):
+    import torch
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused_bwd, kpconv_fused_bwd_plain
+
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    for i, (args, kw) in enumerate(calls):
+        rel, nx_t, g, kp, w = args[:5]
+        dnx_t, dw = kpconv_fused_bwd(*args, **kw)
+        p_dnx, p_dw = kpconv_fused_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = [(dw, p_dw)] + ([] if dnx_t is None else [(dnx_t, p_dnx)])
+        errs = [rel_err(a, b) for a, b in pairs]
+        err, rel_e = max(e[0] for e in errs), max(e[1] for e in errs)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        check(rel_e <= 1e-4, f"K3 gathered call {i}: max relative error {rel_e}")
+        k_count, c_w, d = w.shape
+        h, _, n = nx_t.shape
+        n_real = real_slots(nx_t, 1)
+        need_dnx = dnx_t is not None
+        # A merged call (W8's 8 zero rows first) needs only the C feature
+        # rows: rel is given, and autograd drops the dW and dnx rows over
+        # the coordinates and pad.
+        c_in = c_w - 8 if c_w > 8 and not bool(w[:, :8].any()) else c_w
+        flops = 2.0 * n_real * k_count * (c_in + 12) + 2.0 * n * k_count * c_in * d
+        nbytes = 4 * (rel.numel() + h * c_in * n + g.numel() + kp.numel()
+                      + 2 * k_count * c_in * d)
+        if need_dnx:  # gW and dnx
+            flops += 2.0 * n * k_count * c_in * d + 2.0 * n_real * k_count * c_in
+            nbytes += 4 * h * c_in * n
+        del dnx_t, dw, p_dnx, p_dw
+        ms = time_ms(lambda: kpconv_fused_bwd(*args, **kw))
+        plain_ms = time_ms(lambda: kpconv_fused_bwd_plain(*args, **kw), iters=3)
+        b_ms, b_by = bound(nbytes, flops)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
+            res[key] += val
+        print(f"  K3 gathered call {i}: N={n} H={h} (C,D)=({c_in},{d}) dnx={need_dnx} "
+              f"max|d|={err:.3e} rel={rel_e:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+    # No single PyTorch call computes dW, gW and the recomputed influences.
+    res["library_ms"] = None
+    return res
+
+
+def phase_path(cfg, batch, model, tag="path", expect=None):
+    """``register_pair`` at full width: one warm call, then 3 timed calls
+    with the counters zeroed just before them.  ``expect`` maps a kernel id
+    to its launches per pair (None: at least one)."""
     import torch
     from pcrcg_tpu_torch import kernels
     from pcrcg_tpu_torch.eval.tester import register_pair
 
+    expect = {"K1": None, "K2": None} if expect is None else expect
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = (model, cfg, batch.points[0], batch.masks[0], batch.features[0], gen)
     t0 = time.perf_counter()
@@ -417,7 +635,7 @@ def phase_path(cfg, batch, model):
         res = register_pair(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: kernels.LAUNCHES[k] for k in ("K1", "K2")}
+    launches = dict(kernels.LAUNCHES)
     T = res["transform"].double().cpu()
     rot = T[:, :3]
     ortho = float((rot.T @ rot - torch.eye(3, dtype=torch.float64)).abs().max())
@@ -425,11 +643,16 @@ def phase_path(cfg, batch, model):
     fitness = float(res["fitness"])
     out = res["outputs"]
     n0 = cfg.budgets.points[0]
-    print(f"[path] {n_pairs / wall:.3f} pairs/s ({wall / n_pairs * 1e3:.1f} ms/pair), "
-          f"launches per pair K1 {launches['K1'] / n_pairs:g} K2 {launches['K2'] / n_pairs:g}, "
-          f"fitness {fitness:.4f}, transform finite {bool(torch.isfinite(T).all())}, "
+    print(f"[{tag}] {n_pairs / wall:.3f} pairs/s ({wall / n_pairs * 1e3:.1f} ms/pair), "
+          "launches per pair " + " ".join(f"{k} {launches[k] / n_pairs:g}" for k in expect)
+          + f", fitness {fitness:.4f}, transform finite {bool(torch.isfinite(T).all())}, "
           f"|R^T R - I| {ortho:.2e}, det {det:.6f}", flush=True)
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    for key, per_pair in expect.items():
+        if per_pair is None:
+            check(launches[key] > 0, f"[{tag}] {key} never launched: {launches}")
+        else:
+            check(launches[key] == per_pair * n_pairs,
+                  f"[{tag}] {key}: {launches[key]} launches, expected {per_pair} per pair")
     check(bool(torch.isfinite(T).all()) and ortho < 1e-4 and abs(det - 1.0) < 1e-4,
           "transform is not a finite rigid motion")
     check(0.0 <= fitness <= 1.0, f"fitness {fitness}")
@@ -438,10 +661,40 @@ def phase_path(cfg, batch, model):
     for key in ("scores_overlap", "scores_saliency"):
         check(tuple(out[key].shape) == (2, n0), f"{key} shape")
         check(bool(((out[key] >= 0) & (out[key] <= 1)).all()), f"{key} outside [0, 1]")
+    return launches
 
 
-def phase_agree():
-    """CUDA path vs CPU plain path on a small crop, same weights, same draws."""
+def phase_routes(batch, configs):
+    """The same seeded weights and the same pyramid through every route of
+    ``configs`` (name -> Config, the first the reference) at full width:
+    descriptor cosine over the real points > 0.999, scores within 1e-3."""
+    import torch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+
+    names = list(configs)
+    with torch.no_grad():
+        pyramid = build_pyramid_cfg(configs[names[0]], batch.points[0], batch.masks[0])
+        outs = {name: init_kpfcnn(cfg, seed=0, device=batch.points.device)(pyramid,
+                                                                          batch.features[0])
+                for name, cfg in configs.items()}
+    torch.cuda.synchronize()
+    mask = batch.masks[0]
+    ref = outs[names[0]]
+    for name in names[1:]:
+        out = outs[name]
+        cos = float((out["feats_f"] * ref["feats_f"]).sum(-1)[mask].min())
+        diffs = {k: float((out[k] - ref[k]).abs().max())
+                 for k in ("scores_overlap", "scores_saliency")}
+        print(f"[routes] {name} vs {names[0]}: descriptor cosine min {cos:.7f}, max |d| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
+        check(cos > 0.999, f"[routes] {name}: descriptor cosine {cos}")
+        check(all(v <= 1e-3 for v in diffs.values()), f"[routes] {name}: scores {diffs}")
+
+
+def phase_agree(tag="agree", **overrides):
+    """CUDA path vs CPU plain path on a small crop, same weights, same draws
+    (``overrides``: Config fields, the KPConv route)."""
     import numpy as np
     import torch
     from pcrcg_tpu_torch.assets import demo_cloud_pair
@@ -452,7 +705,7 @@ def phase_agree():
 
     budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
                       query_chunk=512, search_tile=128, search_m_tiles=4)
-    cfg = tiny_test_config(budgets=budgets)
+    cfg = tiny_test_config(budgets=budgets, **overrides)
     src, tgt = demo_cloud_pair()
 
     def crop(p, n):
@@ -486,16 +739,18 @@ def phase_agree():
     fg = rg["outputs"]["feats_f"].cpu()
     mask = make_pair_batch([sample], 2048).masks[0]
     cos = (fc * fg).sum(-1)[mask]
-    print(f"[agree] CUDA vs CPU plain path (N0=2048): transform RMSE {rmse:.3e} m, "
+    print(f"[{tag}] CUDA vs CPU plain path (N0=2048): transform RMSE {rmse:.3e} m, "
           f"descriptor cosine min {float(cos.min()):.7f}, fitness "
           f"{float(rg['fitness']):.4f} vs {float(rc['fitness']):.4f}", flush=True)
     check(rmse <= 0.2, f"CUDA and CPU transforms differ: RMSE {rmse}")
     check(float(cos.min()) > 0.999, "CUDA and CPU descriptors differ")
 
 
-def phase_train(cfg, batch, state):
+def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4", "K5"),
+                idle=()):
     """``train_step`` at full width: one warm step, then 3 timed steps with
-    the launch counters zeroed just before them."""
+    the launch counters zeroed just before them; the kernels ``launched``
+    must have run, those in ``idle`` not."""
     import torch
     from pcrcg_tpu_torch import kernels
     from pcrcg_tpu_torch.ops.neighbors import min_dist_sq, radius_sq
@@ -521,6 +776,7 @@ def phase_train(cfg, batch, state):
         lambda p, n=n: grad_norms[n].append(p.grad.detach().norm())) for n, p in named.items()]
     before = {n: p.detach().clone() for n, p in named.items()}
     n_steps = 3
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -544,11 +800,13 @@ def phase_train(cfg, batch, state):
     # momentum must still have moved.
     buffers = {n: state.optimizer.state[named[n]].get("momentum_buffer") for n in static}
     unmoved = [n for n, b in buffers.items() if b is None or not bool((b != 0).any())]
-    print(f"[train] {wall / n_steps * 1e3:.1f} ms/step ({n_steps} steps, N0="
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] {wall / n_steps * 1e3:.1f} ms/step ({n_steps} steps, N0="
           f"{cfg.budgets.points[0]}, batch 1), launches per step "
           + " ".join(f"{k} {v / n_steps:g}" for k, v in launches.items())
           + f", {moved}/{len(named)} parameters moved, {len(kp_weights)} KPConv weights, "
-          f"{len(kp_weights) - len(zero_kp)} with a non-zero gradient", flush=True)
+          f"{len(kp_weights) - len(zero_kp)} with a non-zero gradient, peak {peak:.2f} GiB",
+          flush=True)
     print("  loss terms (last step): " + ", ".join(
         f"{k} {float(v):.6f}" for k, v in sorted(stats.items())), flush=True)
     check(all(bool(torch.isfinite(t)) for t in totals), "train loss not finite")
@@ -559,7 +817,8 @@ def phase_train(cfg, batch, state):
         print(f"  unchanged in fp32 (update below the spacing, momentum non-zero): {static}",
               flush=True)
     check(not unmoved, f"parameters without an update: {unmoved}")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    check(all(launches[k] > 0 for k in launched), f"[{tag}] a kernel never launched: {launches}")
+    check(all(launches[k] == 0 for k in idle), f"[{tag}] an off-route kernel ran: {launches}")
     return launches
 
 
@@ -586,8 +845,9 @@ def _overlap_crop(n_src, n_tgt):
                 rot=rot, trans=trans)
 
 
-def phase_agree_train():
-    """CUDA path vs CPU plain path of the training slice on a small crop,
+def phase_agree_train(tag="agree-train", **overrides):
+    """CUDA path vs CPU plain path of the training slice on a small crop
+    (``overrides``: Config fields, the KPConv route),
     same weights, same draws: loss terms (relative 1e-4), each parameter's
     gradient (‖Δg‖ ≤ 1e-3·‖g‖ + 1e-6·max ‖g‖: atomics and cuBLAS sum in
     another order; the floor covers the biases whose gradient is zero in
@@ -608,7 +868,7 @@ def phase_agree_train():
 
     budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
                       query_chunk=512, search_tile=128, search_m_tiles=4)
-    cfg = tiny_test_config(budgets=budgets, node_overlap=True, quaternion=True)
+    cfg = tiny_test_config(budgets=budgets, node_overlap=True, quaternion=True, **overrides)
     sample = _overlap_crop(2048, 2000)
     gen = torch.Generator().manual_seed(3)
     draws = torch.rand(3, 1, 2048 * budgets.corr_k, generator=gen)
@@ -654,7 +914,7 @@ def phase_agree_train():
           + ", ".join(f"{t:.6f}" for t in tc) + "; worst share of the bound: gradients "
           + show(grad_rank) + "; two-step updates " + show(step_rank)
           + "; CPU from weights perturbed by 1e-7 " + show(noise_rank), flush=True)
-    print(f"[agree-train] CUDA vs CPU plain path (N0=2048, both heads): loss terms max "
+    print(f"[{tag}] CUDA vs CPU plain path (N0=2048, both heads): loss terms max "
           f"relative difference {stat_rel:.3e} (total {sg['total']:.6f} vs {sc['total']:.6f}, "
           f"circle {sg['circle_loss']:.6f}), gradients at {grad_rank[0][0]:.3f} and two-step "
           f"updates at {step_rank[0][0]:.3f} of their bounds (a 1e-7 weight perturbation "
@@ -707,7 +967,7 @@ def main() -> int:
         del calls
         torch.cuda.empty_cache()
 
-        phase_path(cfg, batch, model)
+        phase_path(cfg, batch, model, expect={"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0})
         phase_agree()
 
         state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
@@ -721,8 +981,46 @@ def main() -> int:
         del calls
         torch.cuda.empty_cache()
 
-        launches = phase_train(cfg, batch, state)
+        launches = phase_train(cfg, batch, state, idle=("K6", "K7", "K8"))
         phase_agree_train()
+        del state
+        torch.cuda.empty_cache()
+
+        # The untiled routes: gathered features (K6 / K7, backward K3's
+        # gathered entry) and influence + reduce (K8, serving only).
+        cfg_u, cfg_r = cfg.replace(kpconv_tiled=False), cfg.replace(kpconv_impl="reduce")
+        model_u = init_kpfcnn(cfg_u, seed=0, device="cuda")
+        model_r = init_kpfcnn(cfg_r, seed=0, device="cuda")
+        calls = record_untiled_inputs(batch, model_u, cfg_u, model_r, cfg_r)
+        print(f"[kernels-untiled] recorded {len(calls['K6'])} K6 and {len(calls['K7'])} K7 "
+              f"calls in one untiled serving forward, {len(calls['K8'])} K8 calls in one on "
+              "the reduce route", flush=True)
+        results.update(K6=phase_k6(calls["K6"]), K7=phase_k7(calls["K7"]),
+                       K8=phase_k8(calls["K8"]))
+        del calls
+        torch.cuda.empty_cache()
+        phase_path(cfg_u, batch, model_u, "path-untiled",
+                   {"K1": None, "K6": 8, "K7": 3, "K2": 0, "K8": 0})
+        reduce_launches = phase_path(cfg_r, batch, model_r, "path-reduce",
+                                     {"K1": None, "K8": 10, "K2": 0, "K6": 0, "K7": 0})
+        del model_u, model_r
+        phase_routes(batch, {"tiled": cfg, "untiled": cfg_u, "reduce": cfg_r})
+        torch.cuda.empty_cache()
+
+        state_u = TrainState(cfg_u, init_kpfcnn(cfg_u, seed=1, device="cuda"))
+        calls = record_gathered_backward_inputs(cfg_u, batch, state_u, gen)
+        print(f"[kernels-untiled] recorded {len(calls['K3g'])} calls of K3's gathered entry in "
+              "the backward of one full-width untiled train_step", flush=True)
+        results["K3g"] = phase_k3g(calls["K3g"])
+        del calls
+        torch.cuda.empty_cache()
+        untiled_launches = phase_train(cfg_u, batch, state_u, "train-untiled",
+                                       launched=("K1", "K3", "K6", "K7"),
+                                       idle=("K2", "K4", "K5", "K8"))
+        del state_u
+        torch.cuda.empty_cache()
+        phase_agree("agree-untiled", kpconv_tiled=False)
+        phase_agree_train("agree-train-untiled", kpconv_tiled=False)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -732,6 +1030,10 @@ def main() -> int:
         capture_output=True, text=True, check=False,
     ).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
+    # Launches on each kernel's route: [train] (K1-K5), [train-untiled] (K6,
+    # K7, K3's gathered entry), [path-reduce] (K8).
+    launches.update(K3g=untiled_launches["K3"], K6=untiled_launches["K6"],
+                    K7=untiled_launches["K7"], K8=reduce_launches["K8"])
     entries = []
     for key, meta in KERNELS.items():
         r = results[key]

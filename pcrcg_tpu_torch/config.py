@@ -2,10 +2,21 @@
 
 The port's own copy of ``pcrcg_tpu/config.py`` (field for field, so every
 config and YAML file loads unchanged in both packages).  The comments below
-describe the JAX package's TPU measurements; the port reads the TPU-only
-fields (``tiled_feat_limbs``, ``search_recall_target``, ``kpconv_impl``,
-``search_kernel``) but ignores them: its kernels compute in fp32 and its
-top-k is exact.
+describe the JAX package's TPU measurements.
+
+The port reads the KPConv route from two fields, as the JAX package does
+(``models/kpconv.py``): ``kpconv_impl`` (``fused``, ``reduce`` or ``xla``)
+and, on ``fused``, ``kpconv_tiled`` (true: the candidate-tile kernels K2-K5;
+false: the gathered-feature kernels K6 / K7 with K3's gathered backward).
+``reduce`` (K8) serves only: ``train_step`` refuses it.  The port resolves
+``auto`` to ``fused`` on both devices, its CPU path being each kernel's
+plain version; the JAX package resolves ``auto`` to ``xla`` off the TPU.
+
+It ignores ``search_kernel``, ``tiled_feat_limbs``,
+``search_recall_target`` and ``compute_dtype``: its search distances (K1)
+run on every route (they carry no vmap constraint, the reason the JAX
+package's mesh training turns its TPU kernel off), its kernels compute in
+fp32 (no bf16 limbs or compute dtype), and its top-k is exact.
 
 The reference flattens YAML sections {misc, model, overlap_attention_module,
 loss, optimiser, dataset, demo} into one namespace (reference

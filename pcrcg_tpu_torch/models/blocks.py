@@ -12,7 +12,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pcrcg_tpu_torch.models.kpconv import KPConv
+from pcrcg_tpu_torch.models.kpconv import KPConv, stack_inds
 from pcrcg_tpu_torch.ops.kpconv_tiled import max_pool_tiled
 from pcrcg_tpu_torch.ops.masked import masked_instance_norm, pad_gather
 
@@ -28,17 +28,17 @@ def init_dense(layer: nn.Module, generator: torch.Generator) -> None:
             layer.bias.zero_()
 
 
-def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """x [B,Ns,C], inds [B,Nq,H] (pad = Ns) -> [B,Nq,C]; shadow neighbors
-    contribute a zero row (reference blocks.py:86-103).  The B clouds stack
-    into one ``max_pool_tiled`` call (shadows map past the stack), whose
-    gradient goes to the first maximal neighbor (K5 on the card), as the
-    JAX package's strided shortcut does (pcrcg_tpu/models/blocks.py:195-211)."""
+def max_pool_first(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """The tiled route's strided shortcut: x [B,Ns,C], inds [B,Nq,H] (pad =
+    Ns) -> [B,Nq,C]; shadow neighbors contribute a zero row (reference
+    blocks.py:86-103).  The B clouds stack into one ``max_pool_tiled`` call,
+    whose gradient goes to the first maximal neighbor (K5 on the card), as
+    the JAX package's tiled route does (pcrcg_tpu/models/blocks.py:195-211);
+    the untiled routes split it among tied maxima (``models/kpconv.py::
+    max_pool``)."""
     b, ns, c = x.shape
     nq = inds.shape[1]
-    off = (torch.arange(b, device=inds.device, dtype=inds.dtype) * ns)[:, None, None]
-    inds_st = torch.where(inds >= ns, b * ns, inds + off).reshape(b * nq, -1).contiguous()
-    return max_pool_tiled(x.reshape(b * ns, c), inds_st).reshape(b, nq, c)
+    return max_pool_tiled(x.reshape(b * ns, c), stack_inds(inds, ns)).reshape(b, nq, c)
 
 
 def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -98,14 +98,18 @@ class SimpleBlock(nn.Module):
                              ones_features=ones_features, **config_kp)
         self.norm = NormBlock()
 
-    def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, tiled_meta):
-        x = self.KPConv(q_pts, s_pts, x, tiled_meta)
+    def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
+                tiled_meta=None):
+        x = self.KPConv(q_pts, s_pts, neighb_inds, x, neighbors_rel, tiled_meta=tiled_meta)
         return F.leaky_relu(self.norm(x, q_mask), 0.1)
 
 
 class ResnetBottleneckBlock(nn.Module):
     """1x1 down -> KPConv -> 1x1 up, with a shortcut that is max-pooled over
-    the pool neighbors when strided (reference blocks.py:593-678)."""
+    the pool neighbors when strided (reference blocks.py:593-678).  The
+    strided shortcut, as pcrcg_tpu/models/blocks.py:182-229: on the tiled
+    route ``max_pool_first``; on the untiled ``fused`` route the max over
+    the conv's own merged gather (K7); otherwise the dense ``max_pool``."""
 
     def __init__(self, in_dim: int, out_dim: int, radius: float, kp_extent: float,
                  config_kp: dict, strided: bool = False, kp_seed: int = 0):
@@ -120,11 +124,17 @@ class ResnetBottleneckBlock(nn.Module):
             UnaryBlock(in_dim, out_dim, no_relu=True) if in_dim != out_dim else None
         )
 
-    def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, tiled_meta):
+    def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
+                tiled_meta=None):
         y = self.unary1(x, s_mask) if self.unary1 is not None else x
-        y = self.KPConv(q_pts, s_pts, y, tiled_meta)
-        # Strided: the shortcut is a max over the pool neighbors.
-        shortcut = max_pool(x, neighb_inds) if self.strided else x
+        if self.strided and tiled_meta is not None:
+            y = self.KPConv(q_pts, s_pts, neighb_inds, y, tiled_meta=tiled_meta)
+            shortcut = max_pool_first(x, neighb_inds)
+        elif self.strided:
+            y, shortcut = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel, shortcut_x=x)
+        else:
+            y = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel, tiled_meta=tiled_meta)
+            shortcut = x
         y = F.leaky_relu(self.norm_conv(y, q_mask), 0.1)
         y = self.unary2(y, q_mask)
         if self.unary_shortcut is not None:

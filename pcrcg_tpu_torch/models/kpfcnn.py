@@ -6,9 +6,16 @@ axis, bottleneck projection + GCN, cross-cloud saliency by temperature
 softmax, nearest-upsample decoder fed [overlap score, saliency, gnn
 feats], L2-normalized descriptors and sigmoid scores with the NaN scrub.
 
+The KPConv route comes from the config, as in the JAX package:
+``kpconv_impl`` (``auto`` -> ``fused``) and, on ``fused``, ``kpconv_tiled``
+(candidate-tile kernels, the default) or not (gathered features, K6 / K7).
+Off the tiled route each level's rel is computed once, without gradient,
+and shared by its convs (the strided convs of ``fused`` compute theirs
+from the merged gather instead).
+
 Parameter names follow the reference torch key layout (the one
-``pcrcg_tpu/models/torch_import.py::_kpfcnn_key_map`` reads), so
-``models/weights.py::state_dict_from_jax`` output loads with
+``pcrcg_tpu/models/torch_import.py::_kpfcnn_key_map`` reads) on every
+route, so ``models/weights.py::state_dict_from_jax`` output loads with
 ``strict=True``.
 """
 from __future__ import annotations
@@ -30,8 +37,8 @@ from pcrcg_tpu_torch.models.blocks import (
     init_dense,
 )
 from pcrcg_tpu_torch.models.gcn import GCN, Conv1x1
-from pcrcg_tpu_torch.models.kpconv import KPConv
-from pcrcg_tpu_torch.ops.masked import masked_softmax
+from pcrcg_tpu_torch.models.kpconv import KPConv, resolve_kpconv_impl
+from pcrcg_tpu_torch.ops.masked import PAD_COORD, masked_softmax, pad_gather
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
 
 
@@ -143,6 +150,7 @@ class KPFCNN(nn.Module):
             aggregation=cfg.aggregation_mode,
             fixed=cfg.fixed_kernel_points,
             tile=cfg.budgets.search_tile,
+            impl=resolve_kpconv_impl(cfg.kpconv_impl),
         )
         extent_ratio = cfg.KP_extent / cfg.conv_radius
         enc = []
@@ -197,9 +205,36 @@ class KPFCNN(nn.Module):
         with torch.no_grad():
             self.epsilon.fill_(-5.0)
 
+    def _shared_rel(self, pyramid: Pyramid, impl: str, tiled: bool):
+        """The per-level rel [B, Nq, H, 3] of the untiled routes (neighbor
+        minus query, shadows at PAD_COORD), without gradient: conv_rel for
+        the non-strided convs; pool_rel for the strided ones, except on
+        ``fused``, whose strided convs use the merged gather."""
+
+        def rel_coords(q_pts, s_pts, neighb):
+            return torch.stack([pad_gather(s_pts[b], neighb[b], PAD_COORD) - q_pts[b][:, None]
+                                for b in range(q_pts.shape[0])])
+
+        conv_rel, pool_rel = {}, {}
+        if tiled:
+            return conv_rel, pool_rel
+        with torch.no_grad():
+            for bp in self.plan.encoder:
+                lvl = bp.layer
+                if bp.strided and impl != "fused" and lvl not in pool_rel:
+                    pool_rel[lvl] = rel_coords(pyramid.points[lvl + 1], pyramid.points[lvl],
+                                               pyramid.pools[lvl])
+                if not bp.strided and lvl not in conv_rel:
+                    conv_rel[lvl] = rel_coords(pyramid.points[lvl], pyramid.points[lvl],
+                                               pyramid.neighbors[lvl])
+        return conv_rel, pool_rel
+
     def forward(self, pyramid: Pyramid, features: torch.Tensor):
         cfg = self.cfg
         plan = self.plan
+        impl = resolve_kpconv_impl(cfg.kpconv_impl)
+        tiled = impl == "fused" and cfg.kpconv_tiled
+        conv_rel, pool_rel = self._shared_rel(pyramid, impl, tiled)
         # 1. joint encoder
         x = features
         skip_x = []
@@ -209,12 +244,14 @@ class KPFCNN(nn.Module):
             lvl = bp.layer
             if bp.strided:
                 q_pts, q_mask = pyramid.points[lvl + 1], pyramid.masks[lvl + 1]
-                neighb, tmeta = pyramid.pools[lvl], pyramid.pool_local[lvl]
+                neighb, rel = pyramid.pools[lvl], pool_rel.get(lvl)
+                tmeta = pyramid.pool_local[lvl] if tiled else None
             else:
                 q_pts, q_mask = pyramid.points[lvl], pyramid.masks[lvl]
-                neighb, tmeta = pyramid.neighbors[lvl], pyramid.conv_local[lvl]
-            x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask,
-                      pyramid.masks[lvl], tmeta)
+                neighb, rel = pyramid.neighbors[lvl], conv_rel.get(lvl)
+                tmeta = pyramid.conv_local[lvl] if tiled else None
+            x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask, pyramid.masks[lvl],
+                      rel, tiled_meta=tmeta)
 
         # 2. bottleneck projection + GNN between the clouds
         mask_c = pyramid.masks[-1]

@@ -1,6 +1,8 @@
-"""What the candidate-tile KPConv forward (K2) and backward (K3, K4) share:
-the neighbor rows resolved from the tile-local ``lidx`` / ``tiles``, the
-influence weights, and the checks on the geometry every kernel reads.
+"""What the KPConv kernels share: the neighbor rows resolved from the
+tile-local ``lidx`` / ``tiles`` (K2 forward, K3 / K4 backward), the
+influence weights (every KPConv kernel, K2-K3 and K6-K8), and the checks on
+the geometry the kernels read, in the candidate-tile form and in the
+gathered form (K6, K7 and K3's gathered entry).
 
 The Python side of ``csrc/kpconv_common.cuh``: the plain versions use these
 functions, and the CUDA kernels compute the same quantities in the same
@@ -81,5 +83,28 @@ def check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregat
     kernels.require(s_pts, "s_pts", f32, dev, (ns, 3))
     kernels.require(lidx, "lidx", i32, dev)
     kernels.require(tiles, "tiles", i32, dev)
+    kernels.require(kernel_points, "kernel_points", f32, dev, (k_count, 3))
+    return dev
+
+
+def check_gathered(nx_t, kernel_points, influence, aggregation, rel=None, q_pts=None):
+    """Validate what a gathered-feature kernel reads (K6, K7, K3's gathered
+    entry): nx_t [H, C, N] f32 and rel [N, H, 3] or, for the merged gather,
+    q_pts [N, 3]; returns the device."""
+    dev = nx_t.device
+    k_count = kernel_points.shape[0]
+    if k_count > K_MAX:
+        raise ValueError(f"the kernels hold at most {K_MAX} kernel points, got {k_count}")
+    if influence not in INFLUENCE or aggregation not in ("sum", "closest"):
+        raise ValueError(f"unsupported influence/aggregation: {influence}/{aggregation}")
+    if nx_t.dim() != 3:
+        raise ValueError(f"nx_t must be [H, C, N], got {tuple(nx_t.shape)}")
+    h_count, _, n = nx_t.shape
+    f32 = torch.float32
+    kernels.require(nx_t, "nx_t", f32, dev)
+    if rel is not None:
+        kernels.require(rel, "rel", f32, dev, (n, h_count, 3))
+    if q_pts is not None:
+        kernels.require(q_pts, "q_pts", f32, dev, (n, 3))
     kernels.require(kernel_points, "kernel_points", f32, dev, (k_count, 3))
     return dev

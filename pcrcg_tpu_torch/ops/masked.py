@@ -23,6 +23,18 @@ def pad_gather(x: torch.Tensor, idx: torch.Tensor, fill_value=0.0) -> torch.Tens
     return torch.where(valid, rows, torch.as_tensor(fill_value, dtype=x.dtype, device=x.device))
 
 
+def pad_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pad_gather(x, idx, 0.0)`` as an ``index_select`` from x with one zero
+    row appended, so its backward is an ``index_add_`` (atomic on the card)
+    rather than the sort-based accumulate of ``x[idx]``'s; the shadow rows'
+    gradient lands on the appended row and is dropped."""
+    n = x.shape[0]
+    idx = idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    xp = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xp.index_select(0, idx.reshape(-1)).reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim, keepdim: bool = False):
     """Mean of x over ``dim`` counting only rows where mask (broadcastable
     to x) is true."""

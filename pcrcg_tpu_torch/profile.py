@@ -1,10 +1,13 @@
 """Where the time of one pair, or of one training step, goes on the card.
 
-    python -m pcrcg_tpu_torch.profile [--pairs 5] [--out profile.json]
+    python -m pcrcg_tpu_torch.profile [--pairs 5] [--route untiled] [--out profile.json]
     python -m pcrcg_tpu_torch.profile --train [--pairs 3] [--out train.json]
 
 Drives the in-repo assets pair at the default ``Config()`` (full width,
-seeded random weights) and reports, per pair (per step with ``--train``):
+seeded random weights) on the KPConv route ``--route`` names (``tiled``,
+the default; ``untiled``: ``kpconv_tiled: false``; ``reduce``:
+``kpconv_impl: reduce``, serving only) and reports, per pair (per step
+with ``--train``):
 
 * host-clock time of each stage, each ending in ``torch.cuda.synchronize()``
   — serving: pyramid, KPFCNN forward, sampling + matching, RANSAC;
@@ -39,6 +42,10 @@ from pcrcg_tpu_torch.registration.ransac import feature_correspondences, ransac_
 from pcrcg_tpu_torch.registration.sampling import weighted_sample_topk
 from pcrcg_tpu_torch.train.state import TrainState
 from pcrcg_tpu_torch.train.step import loss_from_outputs, train_step
+
+
+# The KPConv routes (the Config fields that select them).
+ROUTES = {"tiled": {}, "untiled": dict(kpconv_tiled=False), "reduce": dict(kpconv_impl="reduce")}
 
 
 class _Marks:
@@ -116,13 +123,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--pairs", type=int, default=5, help="pairs (steps) per measurement")
     parser.add_argument("--train", action="store_true", help="profile train_step instead")
+    parser.add_argument("--route", choices=sorted(ROUTES), default="tiled",
+                        help="the KPConv route")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     kernels.build_all()
     torch.set_grad_enabled(False)
 
-    cfg = Config()
+    cfg = Config(**ROUTES[args.route])
     src, tgt = demo_cloud_pair()
     rot, trans = demo_pair_gt_pose()
     sample = dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)
@@ -167,6 +176,7 @@ def main(argv=None):
     result = {
         "card": card,
         "what": "train_step (batch 1)" if args.train else "register_pair",
+        "route": args.route,
         f"{unit}s": args.pairs,
         f"{unit}_ms": unit_ms,
         "stage_ms_synced": {k: v / args.pairs * 1e3 for k, v in marks.seconds.items()},

@@ -6,8 +6,11 @@ the pairs; here it runs eagerly, pair by pair, and each pair's backward
 runs right after its forward (the gradient of the batch mean is the sum
 of the pairs' gradients over B), so only one pair's activations live at a
 time.  Stats are means over the pairs, ``max_*`` stats maxima.  The
-pyramid carries no gradient; the backward reaches K3 / K4 through every
-encoder KPConv and K5 through every strided shortcut.
+pyramid carries no gradient.  On the default (tiled) KPConv route the
+backward reaches K3 / K4 through every encoder KPConv and K5 through every
+strided shortcut; with ``kpconv_tiled: false`` it reaches K3's gathered
+entry through every KPConv (K6 / K7 forward), and the gathers' own
+backward is an ``index_add_``.  ``kpconv_impl: reduce`` serves only.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.data.pair import PairBatch
 from pcrcg_tpu_torch.geom.so3 import quaternion_from_matrix
 from pcrcg_tpu_torch.losses import LossInputs, metric_loss
+from pcrcg_tpu_torch.models.kpconv import resolve_kpconv_impl
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
 from pcrcg_tpu_torch.train.state import TrainState
 
@@ -96,6 +100,11 @@ def train_step(state: TrainState, cfg: Config, batch: PairBatch,
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """Loss, gradients and one optimizer update (skipped when a gradient is
     not finite; ``state.step`` advances either way).  Returns the stats."""
+    if resolve_kpconv_impl(cfg.kpconv_impl) == "reduce":
+        raise NotImplementedError(
+            "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
+            " has no backward, and the JAX package defines no VJP for it"
+        )
     state.zero_grad()
     with torch.enable_grad():
         stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator, backward=True)

@@ -10,7 +10,20 @@ import numpy as np
 import pytest
 import torch
 
-from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd, kpconv_bwd_plain
+from pcrcg_tpu_torch.ops.kpconv_fused import (
+    kpconv_bwd,
+    kpconv_bwd_plain,
+    kpconv_fused,
+    kpconv_fused_bwd,
+    kpconv_fused_bwd_plain,
+    kpconv_fused_merged,
+    kpconv_fused_merged_plain,
+    kpconv_fused_plain,
+)
+from pcrcg_tpu_torch.ops.kpconv_pallas import (
+    kpconv_weighted_reduce,
+    kpconv_weighted_reduce_plain,
+)
 from pcrcg_tpu_torch.ops.kpconv_tiled import (
     kpconv_tiled,
     kpconv_tiled_ad,
@@ -198,13 +211,13 @@ def test_kpconv_weights_get_a_gradient_on_cuda(cuda):
     its input (its output was once detached from autograd there)."""
     from pcrcg_tpu_torch.models.kpconv import KPConv
 
-    q, sup, feats, lidx, tiles, kp, w, _ = _conv_inputs(cuda, 16, 24, seed=7)
+    q, sup, feats, lidx, tiles, kp, w, gidx = _conv_inputs(cuda, 16, 24, seed=7)
     conv = KPConv(16, 24, radius=0.08, kp_extent=0.06).to(cuda)
     with torch.no_grad():
         conv.weights.copy_(w)
         conv.kernel_points.copy_(kp)
     x = feats[None].clone().requires_grad_(True)
-    out = conv(q[None], sup[None], x, (lidx[None], tiles[None]))
+    out = conv(q[None], sup[None], gidx[None], x, tiled_meta=(lidx[None], tiles[None]))
     out.square().sum().backward()
     assert conv.weights.grad is not None and float(conv.weights.grad.abs().sum()) > 0
     assert x.grad is not None and float(x.grad.abs().sum()) > 0
@@ -218,3 +231,163 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError):
         tiled_candidate_distances(q.double(), supa, torch.zeros(1, 2, dtype=torch.int32,
                                                                 device=cuda))
+
+
+def _gathered_inputs(cuda, c, d, seed):
+    """The inputs of the gathered-feature kernels on the card: rel [Nq, H, 3]
+    (shadow at PAD_COORD − q), nx_t [H, C, Nq], the merged gather nxc_t
+    [H, 8 + C, Nq], q, kernel points, W and W8 = [0₈ | W]."""
+    from pcrcg_tpu_torch.ops.masked import PAD_COORD, pad_gather
+
+    q, sup, feats, _, _, kp, w, gidx = _conv_inputs(cuda, c, d, seed=seed)
+    rel = (pad_gather(sup, gidx, PAD_COORD) - q[:, None, :]).contiguous()
+    nx_t = pad_gather(feats, gidx, 0.0).permute(1, 2, 0).contiguous()
+    base = torch.cat([sup, sup.new_zeros(sup.shape[0], 5), feats], 1)
+    nxc_t = pad_gather(base, gidx, 0.0).permute(1, 2, 0).contiguous()
+    w8 = torch.cat([w.new_zeros(w.shape[0], 8, d), w], 1).contiguous()
+    return rel, nx_t, nxc_t, q, kp, w, w8
+
+
+def _same_conv(got, want):
+    """Outputs after the ÷nn agree where the neighbor counts do (a feature
+    sum within rounding of 0 may count differently in another order)."""
+    (got_out, got_nn), (want_out, want_nn) = got, want
+    same = got_nn == want_nn
+    assert float(same.float().mean()) >= 0.999
+    got, want = (got_out / got_nn[:, None])[same], (want_out / want_nn[:, None])[same]
+    # fp32 sums over H neighbors and K·C products in another order.
+    assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+def test_k6_kernel_matches_plain(cuda, influence, aggregation, c, d):
+    rel, nx_t, _, _, kp, w, _ = _gathered_inputs(cuda, c, d, seed=8)
+    args = (rel, nx_t, kp, w, 0.06, influence, aggregation)
+    got = kpconv_fused(*args)
+    want = kpconv_fused_plain(*args)
+    torch.cuda.synchronize()
+    _same_conv(got, want)
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+def test_k7_kernel_matches_plain(cuda, influence, aggregation, c, d):
+    _, _, nxc_t, q, kp, _, w8 = _gathered_inputs(cuda, c, d, seed=9)
+    args = (q, nxc_t, kp, w8, 0.06, influence, aggregation)
+    got = kpconv_fused_merged(*args)
+    want = kpconv_fused_merged_plain(*args)
+    torch.cuda.synchronize()
+    _same_conv(got, want)
+
+
+@pytest.mark.parametrize("influence,c", [("linear", 64), ("gaussian", 128), ("constant", 8),
+                                         ("linear", 512)])
+def test_k8_kernel_matches_plain(cuda, influence, c):
+    rel, nx_t, _, _, kp, _, _ = _gathered_inputs(cuda, c, 4, seed=10)
+    nx = nx_t.permute(2, 0, 1).contiguous()
+    got_w, got_nn = kpconv_weighted_reduce(rel, nx, kp, 0.06, influence)
+    want_w, want_nn = kpconv_weighted_reduce_plain(rel, nx, kp, 0.06, influence)
+    torch.cuda.synchronize()
+    assert float((got_nn == want_nn).float().mean()) >= 0.999
+    # fp32 sums over H neighbors in another order.
+    assert _rel_err(got_w, want_w) <= 1e-5
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+def test_k3_gathered_kernel_matches_plain(cuda, influence, aggregation, c, d):
+    rel, nx_t, _, _, kp, w, _ = _gathered_inputs(cuda, c, d, seed=11)
+    g = torch.randn(rel.shape[0], d, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    for need_dnx in (True, False):
+        args = (rel, nx_t, g, kp, w, 0.06, influence, aggregation)
+        dnx_t, dw = kpconv_fused_bwd(*args, need_dnx=need_dnx)
+        want_dnx, want_dw = kpconv_fused_bwd_plain(*args, need_dnx=need_dnx)
+        torch.cuda.synchronize()
+        # fp32 sums over Nq (dW, split into partials) and D (gW) in
+        # another order than cuBLAS's.
+        assert _rel_err(dw, want_dw) <= 1e-4
+        assert (dnx_t is None) == (not need_dnx)
+        if need_dnx:
+            assert _rel_err(dnx_t, want_dnx) <= 1e-4
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_fused_route_grads_match_cpu(cuda, merged):
+    """The fused route's conv (K6, or K7 with a shortcut) and its backward
+    (K3's gathered entry, then the gather's index_add_) on the card against
+    the CPU plain path: outputs and the gradients of x, W and the shortcut."""
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch.models.kpconv import kpconv
+
+    q, sup, feats, _, _, kp, w, gidx = _conv_inputs(cuda, 32, 48, seed=12)
+    sx = torch.randn(sup.shape[0], 24, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(2))
+
+    def run(dev):
+        x = feats.to(dev).clone().requires_grad_(True)
+        wt = w.to(dev).clone().requires_grad_(True)
+        s = sx.to(dev).clone().requires_grad_(True) if merged else None
+        res = kpconv(q.to(dev), sup.to(dev), gidx.to(dev), x, kp.to(dev), wt, 0.06,
+                     impl="fused", shortcut_x=s)
+        outs = res if merged else (res,)
+        sum(torch.linspace(-1.0, 1.0, o.numel(), device=dev).reshape(o.shape).mul(o).sum()
+            for o in outs).backward()
+        return [o.detach().cpu() for o in outs] + [t.grad.cpu() for t in (x, wt, s)
+                                                   if t is not None]
+
+    key = "K7" if merged else "K6"
+    before = dict(kernels.LAUNCHES)
+    got = run(cuda)
+    assert kernels.LAUNCHES[key] == before[key] + 1
+    assert kernels.LAUNCHES["K3"] == before["K3"] + 1
+    for a, b in zip(got, run(torch.device("cpu"))):
+        assert _rel_err(a, b) <= 1e-4
+
+
+def test_untiled_train_step_gives_every_kpconv_a_gradient(cuda):
+    """One ``train_step`` on the untiled route (K6 / K7 forward, K3's
+    gathered backward): all 11 KPConv weights get a non-zero gradient, and
+    the candidate-tile kernels never launch."""
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose
+    from pcrcg_tpu_torch.config import Budgets, tiny_test_config
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.neighbors import min_dist_sq
+    from pcrcg_tpu_torch.train.state import TrainState
+    from pcrcg_tpu_torch.train.step import train_step
+
+    budgets = Budgets(points=(1024, 512, 256, 128), neighbors=(16,) * 4, corr_k=8,
+                      query_chunk=256, search_tile=32, search_m_tiles=4)
+    cfg = tiny_test_config(budgets=budgets, kpconv_tiled=False)
+    # The n nearest points of each cloud around one point of their overlap,
+    # under the ground-truth pose, so the loss has correspondences.
+    src, tgt = demo_cloud_pair()
+    rot, trans = demo_pair_gt_pose()
+    d2 = min_dist_sq(torch.from_numpy(src @ rot.T + trans).float().to(cuda),
+                     torch.from_numpy(tgt).float().to(cuda),
+                     torch.ones(len(tgt), dtype=torch.bool, device=cuda)).cpu().numpy()
+    center = src[np.flatnonzero(d2 < 0.0375**2)[0]]
+
+    def near(p, c, n):
+        return p[np.argsort(((p - c) ** 2).sum(1), kind="stable")[:n]]
+
+    sample = dict(src_pcd=near(src, center, 1024), tgt_pcd=near(tgt, center @ rot.T + trans, 1000),
+                  rot=rot, trans=trans)
+    batch = make_pair_batch([sample], 1024, device=cuda)
+    state = TrainState(cfg, init_kpfcnn(cfg, seed=0, device=cuda))
+    norms = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: norms.__setitem__(n, float(p.grad.norm())))
+        for n, p in state.model.named_parameters() if n.endswith("KPConv.weights")]
+    kernels.reset_launches()
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        stats = train_step(state, cfg, batch, generator=gen)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    assert np.isfinite(float(stats["total"]))
+    assert len(norms) == 11 and all(v > 0 for v in norms.values()), norms
+    assert kernels.LAUNCHES["K6"] == 8 and kernels.LAUNCHES["K7"] == 3
+    assert kernels.LAUNCHES["K3"] == 11
+    assert kernels.LAUNCHES["K2"] == kernels.LAUNCHES["K5"] == 0

@@ -108,7 +108,8 @@ def test_kpconv_module_stacks_clouds():
     lidx = T(np.stack([p["lidx"] for p in per]))
     tiles = T(np.stack([p["tiles"] for p in per]))
     got = conv(T(np.stack([p["q"] for p in per])), T(np.stack([p["sup"] for p in per])),
-               T(np.stack([p["feats"] for p in per])), (lidx, tiles)).detach().numpy()
+               T(np.stack([p["gidx"] for p in per])).long(),
+               T(np.stack([p["feats"] for p in per])), tiled_meta=(lidx, tiles)).detach().numpy()
     for b, p in enumerate(per):
         want = np.asarray(j_kpconv(
             jnp.asarray(p["q"]), jnp.asarray(p["sup"]), jnp.asarray(p["gidx"]),

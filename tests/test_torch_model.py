@@ -1,6 +1,8 @@
 """The port's KPFCNN against the JAX KPFCNN on the same pyramid and the same
 weights (carried across by ``state_dict_from_jax``), tiny config, a crop
-of the in-repo assets pair."""
+of the in-repo assets pair.  The port runs each of its KPConv routes
+(``ROUTES``); the JAX model on the CPU takes its dense route whatever the
+config says, so one JAX reference serves them all."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,14 @@ from pcrcg_tpu_torch.ops.pyramid import Pyramid
 _BUDGETS = dict(points=(256, 192, 192, 96), neighbors=(16, 16, 16, 16), corr_k=8,
                 query_chunk=64, search_tile=32, search_m_tiles=4)
 _HEADS = dict(node_overlap=True, quaternion=True)
+# The port's KPConv routes: candidate tiles (K2), gathered features (K6 /
+# K7), influence + reduce (K8), dense.
+ROUTES = {
+    "tiled": {},
+    "untiled": dict(kpconv_tiled=False),
+    "reduce": dict(kpconv_impl="reduce"),
+    "xla": dict(kpconv_impl="xla"),
+}
 
 
 def _crop(p, n):
@@ -69,9 +79,10 @@ def test_state_dict_from_jax_matches_export(models):
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
 
 
-def test_state_dict_loads_strict(models):
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_state_dict_loads_strict(models, route):
     _, variables, *_ = models
-    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**_BUDGETS), **_HEADS)
+    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**_BUDGETS), **_HEADS, **ROUTES[route])
     port = KPFCNN(tc)
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     # A fresh seeded model carries the same kernel points as the JAX init.
@@ -88,9 +99,10 @@ def test_plan_matches():
         assert plan_architecture(cfg_t).__repr__() == j_plan(cfg_j).__repr__()
 
 
-def test_kpfcnn_forward_matches_jax(models):
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_kpfcnn_forward_matches_jax(models, route):
     _, variables, pyr, batch, want = models
-    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**_BUDGETS), **_HEADS)
+    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**_BUDGETS), **_HEADS, **ROUTES[route])
     port = KPFCNN(tc).eval()
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     with torch.no_grad():

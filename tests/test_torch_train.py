@@ -139,9 +139,12 @@ def test_crop_overlaps():
     assert (d2 < 0.0375**2).mean() > 0.3
 
 
-def test_pair_loss_and_gradients_match_jax(reference):
+@pytest.mark.parametrize("route", [{}, dict(kpconv_tiled=False)], ids=["tiled", "untiled"])
+def test_pair_loss_and_gradients_match_jax(reference, route):
+    """On the tiled route (K2 forward, K3 / K4 / K5 backward) and the
+    untiled one (K6 / K7 forward, K3's gathered entry backward)."""
     variables, uniforms, want, want_grads = reference
-    tc, state, batch = port_setup(variables)
+    tc, state, batch = port_setup(variables, **route)
     stats = pair_loss(state.model, tc, batch.points[0], batch.masks[0], batch.features[0],
                       batch.rot[0], batch.trans[0], uniforms=uniforms[0])
     stats["total"].backward()
@@ -196,3 +199,15 @@ def test_max_overflow_surfaces_a_budget_drop(reference):
     stats = eval_step(state, tight, batch, uniforms=uniforms)
     assert float(stats["max_overflow"]) > 0.0
     assert np.isfinite(float(stats["total"]))
+
+
+def test_reduce_route_serves_only(reference):
+    """``kpconv_impl: reduce`` (K8) has no backward — the JAX package
+    defines no VJP for it — so ``train_step`` refuses it, while
+    ``eval_step`` serves on it."""
+    variables, uniforms, want, _ = reference
+    tc, state, batch = port_setup(variables, kpconv_impl="reduce")
+    with pytest.raises(NotImplementedError, match="reduce"):
+        train_step(state, tc, batch, uniforms=uniforms)
+    stats = eval_step(state, tc, batch, uniforms=uniforms)
+    np.testing.assert_allclose(float(stats["total"]), want["total"], rtol=1e-4, atol=1e-6)
