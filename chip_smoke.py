@@ -13,9 +13,14 @@ Phases, each printed as it completes:
                of one ``train_step``.  Hold every recorded call against the
                kernel's plain PyTorch version on the card (relative error
                <= 1e-4), and time kernel, plain version and, where one
-               exists, the single PyTorch call for the same function with
-               CUDA events, beside the least time the card could take
-               (bytes / 3.35 TB/s or fp32 flops / 67 TFLOP/s).
+               exists, the single PyTorch call for the same function
+               (``time_ms``: device time, the calls back to back behind a
+               sleep that covers their enqueueing), beside the least time
+               the card could take (bytes / 3.35 TB/s or flops at the
+               card's peak for their type: fp32 67 TFLOP/s; K2's W product
+               as three TF32 passes at 495 TFLOP/s).  K2 also shows its
+               two phases apart, beside ``torch.matmul`` in fp32 on phase
+               B's operands (a diagnostic; the port never calls it).
 3. path     — ``register_pair`` on the assets pair at full width: one warm
                call, then the launch counters are zeroed and 3 timed calls
                run; K1 and K2 must have launched.  The transform must be
@@ -63,6 +68,11 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3  # K2's W product: error-compensated TF32, three products
+# torch.cuda._sleep spins for a number of SM cycles; the H100's top SM clock
+# is 1.98 GHz, so n cycles last at least n / 2e9 s.
+SLEEP_CYCLES_PER_S = 2.0e9
 KERNELS = {
     "K1": dict(
         name="tiled_candidate_distances", route="cuda",
@@ -123,12 +133,25 @@ def check(cond, what):
 
 
 def time_ms(fn, iters=10, warmup=2):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls back to
+    back on the card between two CUDA events.  Before the start event the
+    stream sleeps for longer than the host takes to enqueue all the calls
+    (twice the host-clock time of one call, times ``iters``), so the host
+    work of a call (argument checks, allocations, the launch) does not
+    show as device time.  A call that synchronizes inside still waits on
+    the host."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sleep_s = min(2.0 * iters * host_s + 1e-3, 5.0)
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -137,8 +160,12 @@ def time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes, flops, tf32_flops=0.0):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over their peak rate (fp32 ``flops`` on the CUDA
+    cores, ``tf32_flops`` on the tensor cores, one after the other)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S + tf32_flops / TF32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -256,10 +283,23 @@ def phase_k1(calls):
 
 
 def phase_k2(calls):
+    """K2 against its plain version on every recorded call, and timed: the
+    whole kernel, its phase A (influence + reduce) and phase B (the 3xTF32
+    W product) apart, ``torch.matmul`` in fp32 on phase B's operands, the
+    plain version; bound with the W product as three TF32 passes (and, for
+    comparison, all in fp32 on the CUDA cores)."""
     import torch
     from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled, kpconv_tiled_plain
 
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    try:
+        from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_reduce
+        from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
+    except ImportError:  # a tree from before the phase split: K2 is one C entry
+        kpconv_tiled_reduce = None
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmul in full fp32
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, a_flops=0.0, w_flops=0.0,
+               a_ms=0.0, b_ms=0.0, matmul_ms=0.0)
     shapes = set()
     for i, (args, kw) in enumerate(calls):
         q, s, feats, lidx, tiles, kp, w = args[:7]
@@ -277,26 +317,56 @@ def phase_k2(calls):
         rel = err / max(float(want.abs().max()), 1e-12)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         check(rel <= 1e-4, f"K2 call {i}: max relative error {rel}")
+        del out, nn, p_out, p_nn, got, want, same
         k_count, c_in, d = w.shape
         nq, h = q.shape[0], lidx.shape[1]
-        m_tiles, tile = tiles.shape[1], kw.get("tile", 128)
+        m_tiles, tile = tiles.shape[1], kw.get("tile", args[10] if len(args) > 10 else 128)
+        conf = dict(zip(("kp_extent", "influence", "aggregation", "tile"), args[7:11]))
+        conf.update((k, v) for k, v in kw.items() if k != "keep_weighted")
         n_real = int((lidx[:nq] < m_tiles * tile).sum())
-        flops = 2.0 * n_real * k_count * (c_in + 12) + 2.0 * nq * k_count * c_in * d
+        a_flops = 2.0 * n_real * k_count * (c_in + 12)
+        w_flops = 2.0 * nq * k_count * c_in * d
         nbytes = 4 * sum(t.numel() for t in (q, s, feats, lidx, tiles, kp, w)) + 4 * nq * (d + 1)
         ms = time_ms(lambda: kpconv_tiled(*args, **kw))
         plain_ms = time_ms(lambda: kpconv_tiled_plain(*args, **kw), iters=3)
-        b_ms, b_by = bound(nbytes, flops)
-        res["ms"] += ms
-        res["plain_ms"] += plain_ms
-        res["nbytes"] += nbytes
-        res["flops"] += flops
+        split = ""
+        if kpconv_tiled_reduce is not None:
+            w2 = w.reshape(k_count * c_in, d)
+            weighted = kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count, **conf)[0]
+            b_err = rel_err(tc_gemm(weighted, w2), weighted @ w2)[1]
+            a_ms = time_ms(lambda: kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count,
+                                                       **conf))
+            b_ms = time_ms(lambda: tc_gemm(weighted, w2))
+            mm_ms = time_ms(lambda: torch.matmul(weighted, w2))
+            del weighted
+            plan = plan_gemm(nq, d, k_count * c_in,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+            split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, "
+                     f"rel {b_err:.1e} vs fp32 matmul], torch.matmul fp32 {mm_ms:.4f})")
+            for key, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
+                res[key] += val
+        b3, b3_by = bound(nbytes, a_flops, TF32_PASSES * w_flops)
+        b32 = bound(nbytes, a_flops + w_flops)[0]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes),
+                         ("a_flops", a_flops), ("w_flops", w_flops)):
+            res[key] += val
         shapes.add((c_in, d))
         print(f"  K2 call {i}: Nq={nq} H={h} (C,D)=({c_in},{d}) max|d|={err:.3e} rel={rel:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"kernel {ms:.4f} ms{split} plain {plain_ms:.4f} ms bound {b3:.4f} ms "
+              f"({b3_by}; all fp32: {b32:.4f})", flush=True)
     for need in ((1, 128), (64, 64), (256, 256), (512, 512)):
         check(need in shapes, f"K2: shape {need} not exercised")
-    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["a_flops"],
+                                             TF32_PASSES * res["w_flops"])
+    bound_fp32 = bound(res["nbytes"], res["a_flops"] + res["w_flops"])[0]
+    split = ""
+    if res["b_ms"] > 0:
+        w_tflops = TF32_PASSES * res["w_flops"] / (res["b_ms"] * 1e-3) / 1e12
+        split = (f" = phase A {res['a_ms']:.4f} + phase B {res['b_ms']:.4f} ms "
+                 f"({w_tflops:.1f} TFLOP/s of TF32 product, {res['w_flops'] / 1e9:.1f} GFLOP x "
+                 f"{TF32_PASSES}; torch.matmul fp32 {res['matmul_ms']:.4f} ms)")
+    print(f"[kernels] K2 over {len(calls)} calls: {res['ms']:.4f} ms{split}; bound "
+          f"{res['bound_ms']:.4f} ms (W as 3xTF32) / {bound_fp32:.4f} ms (all fp32)", flush=True)
     res["library_ms"] = None  # no single PyTorch call computes a KPConv
     return res
 
@@ -347,7 +417,8 @@ def phase_k3(calls):
 
 def _scatter_phase(key, calls, kernel, plain, library, count):
     """Shared K4 / K5 check: kernel vs plain version, then kernel, plain and
-    the single index_add_ over pre-resolved rows timed."""
+    the single index_add_ over pre-resolved rows (with its output's zero
+    fill, as the kernels make theirs) timed."""
     import torch
 
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
@@ -397,10 +468,11 @@ def phase_k4(calls):
         # The real (query, neighbor) rows only, resolved outside the timing:
         # the kernel skips shadows, and so does this index_add_.
         dnx = args[0]
+        # The zero fill is timed, as the kernel's wrapper makes it.
         row, valid, ns = resolved(args)
         rows, src = row[valid], dnx[valid]
-        out = torch.zeros(ns, dnx.shape[2], device=dnx.device)
-        return lambda: out.index_add_(0, rows, src)
+        c_in = dnx.shape[2]
+        return lambda: torch.zeros(ns, c_in, device=dnx.device).index_add_(0, rows, src)
 
     return _scatter_phase("K4", calls, scatter_ds_feats, scatter_ds_feats_plain, library, count)
 
@@ -422,16 +494,25 @@ def phase_k5(calls):
     def library(args):
         # The non-shadow (query, channel) entries only, resolved outside the
         # timing: the kernel skips shadows, and so does this index_add_.
+        # The zero fill is timed, as the kernel makes it.
         g, amax, inds, ns = args[:4]
         c_in = g.shape[1]
         rows = inds.gather(1, amax)
         valid = rows < ns
         flat = (rows * c_in + torch.arange(c_in, device=g.device))[valid]
         src = g[valid]
-        out = torch.zeros(ns * c_in, device=g.device)
-        return lambda: out.index_add_(0, flat, src)
+        return lambda: torch.zeros(ns * c_in, device=g.device).index_add_(0, flat, src)
 
-    return _scatter_phase("K5", calls, maxpool_bwd, maxpool_bwd_plain, library, count)
+    res = _scatter_phase("K5", calls, maxpool_bwd, maxpool_bwd_plain, library, count)
+    # The kernel reads every entry; the yardstick only those with a real row.
+    real = sum(int((a[2].gather(1, a[1]) < a[3]).sum()) for a, _ in calls)
+    total = sum(a[1].numel() for a, _ in calls)
+    verdict = "no slower than" if res["ms"] <= res["library_ms"] else "slower than"
+    print(f"[kernels] K5 {res['ms']:.4f} ms over {len(calls)} calls: {verdict} its yardstick "
+          f"(index_add_ with its zero fill, {res['library_ms']:.4f} ms, over the {real / total:.3f}"
+          f" of the entries with a real row); {res['bound_ms'] / res['ms']:.2f} of its bound "
+          f"({res['bound_ms']:.4f} ms)", flush=True)
+    return res
 
 
 def record_untiled_inputs(batch, model_untiled, cfg_untiled, model_reduce, cfg_reduce):

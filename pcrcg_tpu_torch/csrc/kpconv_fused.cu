@@ -28,7 +28,7 @@
 //   (neighbor, query)), the neighbor counts, and weighted_t [K*C, N] (a warp
 //   per channel, K accumulators a thread).
 //   Phase B (sgemm.cuh): out [N, D] = weighted_t^T x W, the hand-written
-//   fp32 GEMM K2 and K3 use; the W contraction is part of the TPU kernel's
+//   fp32 GEMM K3 uses; the W contraction is part of the TPU kernel's
 //   body, so it is written here and not left to a library.
 //
 // What bounds it on the H100: at level 0 the bytes of nx_t (53,248 x 40 x

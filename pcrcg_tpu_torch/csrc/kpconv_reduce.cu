@@ -14,8 +14,7 @@
 //
 // The TPU kernel ran a (query tile, kernel point) grid, re-reading each
 // VMEM-resident nx tile once per kernel point.  Here a block takes `qpb`
-// queries (as K2's phase A does, kpconv_tiled.cu): one warp per (query,
-// neighbor) computes the K influences (lane = kernel point) into shared
+// queries: one warp per (query, neighbor) computes the K influences (lane = kernel point) into shared
 // memory and the neighbor's feature sum (lanes over channels); then the
 // threads walk (query, channel) pairs -- nx is query-major, so neighbouring
 // threads read neighbouring channels -- with K accumulators each, reading

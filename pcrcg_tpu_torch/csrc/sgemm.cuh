@@ -1,5 +1,5 @@
-// Shared-memory-tiled fp32 GEMM for the KPConv kernels (K2's W contraction,
-// K3's two backward products).
+// Shared-memory-tiled fp32 GEMM for the KPConv kernels (K3's two backward
+// products, K6 and K7's W contraction).
 //
 //   C[z][M, N] = op(A)[M, k0:k1] x op(B)[k0:k1, N],  k0 = z * k_chunk
 //
@@ -10,8 +10,10 @@
 // output tiles, 256 threads; thread (tx, ty) owns rows ty + 16 i and
 // columns tx + 16 j (i, j < 4).  Operand loads walk the contiguous axis
 // of each operand, so neighbouring threads read neighbouring addresses in
-// every layout.  Everything stays fp32 on the CUDA cores: wgmma / TF32
-// tiles are later work.
+// every layout.  Everything stays fp32 on the CUDA cores.  K2's W
+// contraction runs on the tensor cores instead (tc_gemm.cuh: three TF32
+// products of the split operands, fp32-grade); moving these callers there
+// is later work.
 #pragma once
 
 #include <cuda_runtime.h>

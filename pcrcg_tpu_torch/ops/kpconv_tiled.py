@@ -17,8 +17,10 @@ feature, rel = −q).  Per query:
 JAX kernel.  Each wrapper runs its plain PyTorch version for a CPU tensor
 and launches its CUDA kernel for a CUDA tensor, never falling back:
 
-* ``kpconv_tiled`` — K2, ``csrc/kpconv_tiled.cu`` (gather + influence +
-  reduce, then a hand-written fp32 GEMM for the W contraction);
+* ``kpconv_tiled`` — K2, ``csrc/kpconv_tiled.cu``, two launches: phase A
+  (``kpconv_tiled_reduce``: gather + influence + reduce into ``weighted``)
+  and phase B (``ops/tc_gemm.py::tc_gemm``: the W contraction on the
+  tensor cores, error-compensated TF32, fp32-grade);
 * ``scatter_ds_feats`` — K4, ``csrc/tile_scatter.cu``: the feature
   gradient ``ds[row(n, h)] += dnx[n, h]``;
 * ``maxpool_bwd`` — K5, ``csrc/tile_scatter.cu``: the max-pool gradient
@@ -43,6 +45,20 @@ from pcrcg_tpu_torch.ops.kpconv_common import (
     support_rows,
 )
 from pcrcg_tpu_torch.ops.masked import pad_gather
+from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
+
+
+def kpconv_tiled_reduce_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
+                              k_count: int, kp_extent: float, influence: str = "linear",
+                              aggregation: str = "sum", tile: int = 128):
+    """Plain PyTorch version of phase A: -> (weighted [Nq, K·C], nn [Nq])."""
+    nq, c_in = q_pts.shape[0], s_feats.shape[1]
+    rel, row, vf = neighbor_rel(q_pts, s_pts, lidx, tiles, tile)
+    feats = s_feats[row] * vf  # [Nq, H, C], shadow rows zero
+    w = compute_wgt(rel, kernel_points, kp_extent, influence, aggregation)
+    weighted = torch.einsum("nhk,nhc->nkc", w, feats).reshape(nq, k_count * c_in)
+    nn = (feats.sum(-1) > 0.0).sum(-1).clamp_min(1).to(weighted.dtype)
+    return weighted, nn
 
 
 def kpconv_tiled_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
@@ -51,15 +67,42 @@ def kpconv_tiled_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weight
                        keep_weighted: bool = False):
     """Plain PyTorch version of the kernel: -> (out [Nq, D], nn [Nq]), and
     weighted [Nq, K·C] with ``keep_weighted``."""
-    nq = q_pts.shape[0]
     k_count, c_in, d = weights.shape
-    rel, row, vf = neighbor_rel(q_pts, s_pts, lidx, tiles, tile)
-    feats = s_feats[row] * vf  # [Nq, H, C], shadow rows zero
-    w = compute_wgt(rel, kernel_points, kp_extent, influence, aggregation)
-    weighted = torch.einsum("nhk,nhc->nkc", w, feats).reshape(nq, k_count * c_in)
+    weighted, nn = kpconv_tiled_reduce_plain(q_pts, s_pts, s_feats, lidx, tiles,
+                                             kernel_points, k_count, kp_extent, influence,
+                                             aggregation, tile)
     out = weighted @ weights.reshape(k_count * c_in, d)
-    nn = (feats.sum(-1) > 0.0).sum(-1).clamp_min(1).to(out.dtype)
     return (out, nn, weighted) if keep_weighted else (out, nn)
+
+
+def kpconv_tiled_reduce(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, k_count: int,
+                        kp_extent: float, influence: str = "linear",
+                        aggregation: str = "sum", tile: int = 128):
+    """K2's phase A: -> (weighted [Nq, K·C], nn [Nq]), bit for bit the same
+    on every run.  The CUDA launch of ``kpconv_tiled``'s first half; the
+    launch count is ``kpconv_tiled``'s."""
+    if q_pts.device.type == "cpu":
+        return kpconv_tiled_reduce_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
+                                         k_count, kp_extent, influence, aggregation, tile)
+    dev = check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregation)
+    nq, ns = q_pts.shape[0], s_pts.shape[0]
+    c_in = s_feats.shape[1]
+    kernels.require(s_feats, "s_feats", torch.float32, dev, (ns, c_in))
+    if kernel_points.shape[0] != k_count:
+        raise ValueError(f"{kernel_points.shape[0]} kernel points, weights have {k_count}")
+    weighted = torch.empty(nq, k_count * c_in, device=dev, dtype=torch.float32)
+    nn = torch.empty(nq, device=dev, dtype=torch.float32)
+    rowsum = torch.empty(ns, device=dev, dtype=torch.float32)  # scratch
+    sigma = kp_extent * 0.3
+    err = kernels.bind("kpconv_tiled", "pcrcg_kpconv_tiled_reduce", "pipipipipiipiffiipppp")(
+        q_pts.data_ptr(), nq, s_pts.data_ptr(), ns, s_feats.data_ptr(), c_in,
+        lidx.data_ptr(), lidx.shape[1], tiles.data_ptr(), tiles.shape[1], tile,
+        kernel_points.data_ptr(), k_count, float(kp_extent), float(2.0 * sigma**2 + 1e-9),
+        INFLUENCE[influence], int(aggregation == "closest"), rowsum.data_ptr(),
+        weighted.data_ptr(), nn.data_ptr(), kernels.stream_handle(dev),
+    )
+    kernels.check_launch(err, "kpconv_tiled phase A")
+    return weighted, nn
 
 
 def kpconv_tiled(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
@@ -73,24 +116,11 @@ def kpconv_tiled(q_pts, s_pts, s_feats, lidx, tiles, kernel_points, weights,
         return kpconv_tiled_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
                                   weights, kp_extent, influence, aggregation, tile,
                                   keep_weighted)
-    dev = check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregation)
-    nq, ns = q_pts.shape[0], s_pts.shape[0]
     k_count, c_in, d = weights.shape
-    kernels.require(s_feats, "s_feats", torch.float32, dev, (ns, c_in))
-    kernels.require(weights, "weights", torch.float32, dev)
-    weighted = torch.empty(nq, k_count * c_in, device=dev, dtype=torch.float32)
-    out = torch.empty(nq, d, device=dev, dtype=torch.float32)
-    nn = torch.empty(nq, device=dev, dtype=torch.float32)
-    sigma = kp_extent * 0.3
-    err = kernels.bind("kpconv_tiled", "pcrcg_kpconv_tiled", "pipipipipiipipiffiipppp")(
-        q_pts.data_ptr(), nq, s_pts.data_ptr(), ns, s_feats.data_ptr(), c_in,
-        lidx.data_ptr(), lidx.shape[1], tiles.data_ptr(), tiles.shape[1], tile,
-        kernel_points.data_ptr(), k_count, weights.data_ptr(), d,
-        float(kp_extent), float(2.0 * sigma**2 + 1e-9), INFLUENCE[influence],
-        int(aggregation == "closest"), weighted.data_ptr(), out.data_ptr(),
-        nn.data_ptr(), kernels.stream_handle(dev),
-    )
-    kernels.check_launch(err, "kpconv_tiled")
+    kernels.require(weights, "weights", torch.float32, q_pts.device)
+    weighted, nn = kpconv_tiled_reduce(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
+                                       k_count, kp_extent, influence, aggregation, tile)
+    out = tc_gemm(weighted, weights.reshape(k_count * c_in, d))
     kernels.count_launch("K2")
     return (out, nn, weighted) if keep_weighted else (out, nn)
 
@@ -190,7 +220,7 @@ def maxpool_bwd(g, amax, inds, ns: int):
     kernels.require(inds, "inds", torch.int64, dev)
     if inds.shape[0] != nq:
         raise ValueError(f"inds {tuple(inds.shape)} does not fit g {tuple(g.shape)}")
-    ds = torch.zeros(ns, c_in, device=dev, dtype=torch.float32)
+    ds = torch.empty(ns, c_in, device=dev, dtype=torch.float32)  # zeroed by the launch
     err = kernels.bind("tile_scatter", "pcrcg_maxpool_bwd", "pppiiiipp")(
         g.data_ptr(), amax.data_ptr(), inds.data_ptr(), nq, inds.shape[1], c_in, ns,
         ds.data_ptr(), kernels.stream_handle(dev),

@@ -28,12 +28,14 @@ from pcrcg_tpu_torch.ops.kpconv_tiled import (
     kpconv_tiled,
     kpconv_tiled_ad,
     kpconv_tiled_plain,
+    kpconv_tiled_reduce,
     max_pool_tiled,
     maxpool_bwd,
     maxpool_bwd_plain,
     scatter_ds_feats,
     scatter_ds_feats_plain,
 )
+from pcrcg_tpu_torch.ops.tc_gemm import BK, GemmPlan, plan_gemm, tc_gemm
 from pcrcg_tpu_torch.ops.search_kernel import (
     pack_supports_tile_major,
     tiled_candidate_distances,
@@ -164,6 +166,86 @@ def test_k5_kernel_matches_plain(cuda, c):
     want = maxpool_bwd_plain(g, amax, gidx, sup.shape[0])
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= 1e-5
+
+
+def _forced_split(k, splits):
+    """A plan cutting the reduction into ``splits`` partials."""
+    k_tiles = -(-k // BK)
+    per = -(-k_tiles // splits)
+    return GemmPlan(-(-k_tiles // per), per * BK)
+
+
+# Phase B's edges: ragged Nq (not a multiple of 128), K·C = 15 (60-byte
+# rows: the 4-byte copy path), D not a multiple of 4 (the same), a forced
+# split-K, and the widest main-path conv.
+@pytest.mark.parametrize("nq,c,d,splits", [(300, 1, 128, None), (500, 64, 64, 3),
+                                           (333, 8, 18, None), (1000, 512, 512, None)])
+def test_k2_tensor_core_product_edges(cuda, nq, c, d, splits):
+    q, sup, feats, lidx, tiles, kp, w, _ = _conv_inputs(cuda, c, d, seed=8, nq=nq)
+    want_out, want_nn = kpconv_tiled_plain(q, sup, feats, lidx, tiles, kp, w, 0.06)
+    weighted, nn = kpconv_tiled_reduce(q, sup, feats, lidx, tiles, kp, 15, 0.06)
+    w2 = w.reshape(15 * c, d)
+    plan = plan_gemm(nq, d, 15 * c) if splits is None else _forced_split(15 * c, splits)
+    assert splits is None or plan.splits == splits
+    out = tc_gemm(weighted, w2, plan)
+    full_out, full_nn = kpconv_tiled(q, sup, feats, lidx, tiles, kp, w, 0.06)
+    torch.cuda.synchronize()
+    assert torch.equal(nn, full_nn)
+    same = nn == want_nn
+    assert float(same.float().mean()) >= 0.999
+    for got in (out, full_out):
+        assert _rel_err((got / nn[:, None])[same], (want_out / want_nn[:, None])[same]) <= 1e-4
+    # fp32-grade: the three TF32 products keep the small terms.
+    exact = weighted.double() @ w2.double()
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+def test_k2_is_bit_identical_run_to_run(cuda):
+    """Phase A has no atomics on floats and the split-K partials are summed
+    in a fixed order, so two runs agree bit for bit."""
+    args = _conv_inputs(cuda, 512, 512, seed=9, nq=1536)[:7]
+    assert plan_gemm(1536, 512, 15 * 512).splits > 1
+    first = kpconv_tiled(*args, 0.06, keep_weighted=True)
+    second = kpconv_tiled(*args, 0.06, keep_weighted=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_tc_gemm_rejects_bad_arguments(cuda):
+    a = torch.zeros(10, 8, device=cuda)
+    with pytest.raises(ValueError):
+        tc_gemm(a, torch.zeros(9, 4, device=cuda))
+    with pytest.raises(ValueError):
+        tc_gemm(a, torch.zeros(8, 4, device=cuda, dtype=torch.float64))
+    with pytest.raises(RuntimeError):  # a plan whose partials do not cover K
+        tc_gemm(a, torch.zeros(8, 4, device=cuda), GemmPlan(1, 0))
+
+
+def test_k5_routes_ties_to_the_first_maximum_and_drops_shadows(cuda):
+    """Built ties (a row listed twice, two rows with equal features) and
+    shadow slots, including queries whose maximum is a shadow's 0."""
+    rng = np.random.default_rng(10)
+    ns, nq, h, c = 96, 70, 40, 37
+    x = torch.from_numpy(rng.normal(size=(ns, c)).astype(np.float32))
+    x[1] = x[0]  # rows 0 and 1 tie everywhere
+    x[80:] = -x[80:].abs() - 0.5  # all negative: a shadow (0.0) wins
+    inds = torch.from_numpy(rng.integers(2, ns, size=(nq, h)))
+    inds[:, 5:9] = ns  # shadow slots
+    inds[:10, 0], inds[:10, 1] = 0, 1
+    inds[10:20, 2], inds[10:20, 3] = 7, 7
+    inds[20:30] = torch.from_numpy(rng.integers(80, ns, size=(10, h)))
+    inds[20:30, 20:] = ns
+    x, inds = x.to(cuda), inds.to(cuda)
+    from pcrcg_tpu_torch.ops.masked import pad_gather
+
+    _, amax = pad_gather(x, inds, 0.0).max(dim=1)
+    assert bool((inds.gather(1, amax)[20:30] == ns).all())  # maxima on a shadow
+    g = torch.randn(nq, c, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    got = maxpool_bwd(g, amax, inds, ns)
+    want = maxpool_bwd_plain(g, amax, inds, ns)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-5
+    assert float(got[1].abs().max()) == 0.0  # the tie went to row 0, listed first
 
 
 def _ad_grads(args, influence="linear", aggregation="sum"):
