@@ -9,18 +9,22 @@ Phases, each printed as it completes:
                ``nvcc`` per source, all at once) and print ptxas's report.
 2. kernels  — record the inputs each kernel gets on the real paths (the
                assets pair at ``Config()`` budgets, seeded random weights):
-               K1 / K2 in a serving forward, K3 / K4 / K5 in the backward
-               of one ``train_step``.  Hold every recorded call against the
-               kernel's plain PyTorch version on the card (relative error
-               <= 1e-4), and time kernel, plain version and, where one
-               exists, the single PyTorch call for the same function
-               (``time_ms``: device time, the calls back to back behind a
-               sleep that covers their enqueueing), beside the least time
-               the card could take (bytes / 3.35 TB/s or flops at the
-               card's peak for their type: fp32 67 TFLOP/s; K2's W product
-               as three TF32 passes at 495 TFLOP/s).  K2 also shows its
-               two phases apart, beside ``torch.matmul`` in fp32 on phase
-               B's operands (a diagnostic; the port never calls it).
+               K1 / K2 in a serving forward, K3 (with K4's scatter folded
+               in) / K5 in the backward of one ``train_step``.  Hold every
+               recorded call against the kernel's plain PyTorch version on
+               the card (relative error <= 1e-4), and time kernel, plain
+               version and, where one exists, the single PyTorch call for
+               the same function (``time_ms``: device time, the calls back
+               to back behind a sleep that covers their enqueueing), beside
+               the least time the card could take (bytes / 3.35 TB/s or
+               flops at the card's peak for their type: fp32 67 TFLOP/s;
+               the W products of K2 and K3 as three TF32 passes at 495
+               TFLOP/s).  K2 also shows its two phases apart, beside
+               ``torch.matmul`` in fp32 on phase B's operands; K3 its two
+               products apart, beside ``torch.matmul`` in fp32 on theirs
+               (diagnostics; the port never calls it), with dW bit for bit
+               the same on two runs and each product within 1e-5 of its
+               largest entry against float64.
 3. path     — ``register_pair`` on the assets pair at full width: one warm
                call, then the launch counters are zeroed and 3 timed calls
                run; K1 and K2 must have launched.  The transform must be
@@ -38,9 +42,10 @@ Phases, each printed as it completes:
                SGD steps, with the same weights and the same draws.
 7. kernels-untiled — as 2, for the untiled routes: K6 / K7 in a serving
                forward under ``Config(kpconv_tiled=False)``, K8 under
-               ``Config(kpconv_impl="reduce")``, K3's gathered entry in the
-               backward of one untiled ``train_step`` (nn equal on >= 1 -
-               1e-4 of the queries, as for K2).
+               ``Config(kpconv_impl="reduce")``, K3's gathered entry (its
+               products apart, as K3's tiled entry) in the backward of one
+               untiled ``train_step`` (nn equal on >= 1 - 1e-4 of the
+               queries, as for K2).
 8. path-untiled, path-reduce — 3 on those routes: K6 8 and K7 3 launches
                per pair and K2 none; K8 10 per pair.
 9. routes   — the same weights and pyramid through the tiled, untiled and
@@ -53,8 +58,9 @@ Phases, each printed as it completes:
 
 Then it prints the card's ``name, power.limit``, one JSON line with every
 kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
-entry from [train-untiled], K8 from [path-reduce]), and as its last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+entry from [train-untiled], K8 from [path-reduce]; K4 runs inside K3's
+tiled entry, so its row gives that entry's time and bound), and as its
+last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, without CUDA or without the
 package beside it, and on any failed check.
 """
@@ -69,7 +75,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
-TF32_PASSES = 3  # K2's W product: error-compensated TF32, three products
+TF32_PASSES = 3  # the W products (K2, K3): error-compensated TF32, three products
 # torch.cuda._sleep spins for a number of SM cycles; the H100's top SM clock
 # is 1.98 GHz, so n cycles last at least n / 2e9 s.
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -85,13 +91,15 @@ KERNELS = {
         replaces="pcrcg_tpu/ops/kpconv_tiled.py:62",
     ),
     "K3": dict(
-        name="kpconv_bwd", route="cuda",
+        name="kpconv_tiled_bwd", route="cuda",
         source="pcrcg_tpu_torch/csrc/kpconv_bwd.cu",
         replaces="pcrcg_tpu/ops/kpconv_fused.py:450",
     ),
+    # K4's scatter runs inside K3's candidate-tile entry: its row gives the
+    # pair's time and bound, its own error (ds) and index_add_'s time.
     "K4": dict(
-        name="scatter_ds_feats", route="cuda",
-        source="pcrcg_tpu_torch/csrc/tile_scatter.cu",
+        name="kpconv_tiled_bwd (scatter fused into K3)", route="cuda",
+        source="pcrcg_tpu_torch/csrc/kpconv_bwd.cu",
         replaces="pcrcg_tpu/ops/kpconv_tiled.py:507",
     ),
     "K5": dict(
@@ -226,14 +234,19 @@ def record_kernel_inputs(cfg, batch, model):
 
 
 def record_backward_inputs(cfg, batch, state, generator):
-    """K3 / K4 / K5 arguments of one full-width ``train_step``."""
+    """K3 / K4 / K5 arguments of one full-width ``train_step``: K3's
+    candidate-tile entry with K4 folded in (``kpconv_tiled_bwd``) or, on a
+    tree from before the fold (timed for comparison), K3 and K4 apart."""
     import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
     import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
     from pcrcg_tpu_torch.train.step import train_step
 
-    return record_calls(lambda: train_step(state, cfg, batch, generator=generator),
-                        {"K3": (kf_mod, "kpconv_bwd"), "K4": (kt_mod, "scatter_ds_feats"),
-                         "K5": (kt_mod, "maxpool_bwd")})
+    targets = {"K5": (kt_mod, "maxpool_bwd")}
+    if hasattr(kt_mod, "kpconv_tiled_bwd"):
+        targets["K3"] = (kt_mod, "kpconv_tiled_bwd")
+    else:
+        targets.update(K3=(kf_mod, "kpconv_bwd"), K4=(kt_mod, "scatter_ds_feats"))
+    return record_calls(lambda: train_step(state, cfg, batch, generator=generator), targets)
 
 
 def phase_k1(calls):
@@ -377,7 +390,137 @@ def rel_err(got, want):
     return err, err / max(float(want.abs().max()), 1e-12)
 
 
-def phase_k3(calls):
+def fp64_err(got, a, b):
+    """max |got − a @ b| over the largest entry of a @ b, both in float64."""
+    exact = a.double() @ b.double()
+    return float((got.double() - exact).abs().max()) / max(float(exact.abs().max()), 1e-300)
+
+
+def phase_k3_k4(calls):
+    """K3's candidate-tile entry with K4's scatter folded in, on every
+    recorded call: dW and ds against K3's then K4's plain versions
+    (relative 1e-4; ds is summed by atomics), dW bit for bit against a
+    second run and within 1e-5 of its largest entry against float64, as is
+    gW's product.  Timed: the entry; its two products apart (``tc_gemm`` on
+    the same operands and plans; the rest is the difference) beside
+    ``torch.matmul`` in fp32 on the same operands (a diagnostic, cuBLAS);
+    the plain version; ``index_add_`` for K4's scatter alone.  Bound: the
+    products as three TF32 passes, the rest fp32, against the bytes read
+    and written once (dnx is not written); the unfused rule (all fp32, dnx
+    written by K3 and read by K4) beside it.  -> (K3's result, K4's)."""
+    import torch
+    from pcrcg_tpu_torch.ops.kpconv_common import support_rows
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd_plain
+    from pcrcg_tpu_torch.ops.kpconv_tiled import (
+        kpconv_tiled_bwd, kpconv_tiled_bwd_plain, scatter_ds_feats_plain,
+    )
+    from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmuls in full fp32
+    k3 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, prod_flops=0.0,
+              dw_ms=0.0, gw_ms=0.0, matmul_ms=0.0, library_ms=None)
+    # Sums under the unfused rule, bytes and fp32 flops: K3 and K4 apart.
+    old = dict(k3_bytes=0.0, k3_flops=0.0, k4_bytes=0.0, k4_flops=0.0)
+    k4 = dict(max_abs_err=0.0, library_ms=0.0)
+    n_ds = 0
+    for i, (args, kw) in enumerate(calls):
+        q, s, lidx, tiles, kp, w, g, weighted = args[:8]
+        conf = args[8:12]  # kp_extent, influence, aggregation, tile
+        tile = conf[3]
+        need_ds = kw.get("need_ds", True)
+        k_count, c_in, d = w.shape
+        kc, nq, ns, h = k_count * c_in, q.shape[0], s.shape[0], lidx.shape[1]
+        w2 = w.reshape(kc, d)
+        dw, ds = kpconv_tiled_bwd(*args, **kw)
+        dw_again = kpconv_tiled_bwd(*args, **kw)[0]
+        p_dw, p_dnx = kpconv_bwd_plain(*args[:8], *conf, need_dnx=need_ds)
+        torch.cuda.synchronize()
+        check(torch.equal(dw, dw_again), f"K3 call {i}: dW differs between two runs")
+        del dw_again
+        err, rel = rel_err(dw, p_dw)
+        check(rel <= 1e-4, f"K3 call {i}: dW max relative error {rel}")
+        dw64 = fp64_err(dw.reshape(kc, d), weighted.T, g)
+        check(dw64 <= 1e-5, f"K3 call {i}: dW vs float64 {dw64}")
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        row, valid = support_rows(lidx, tiles, nq, ns, tile)
+        n_real = int(valid.sum())
+        prod = 2.0 * nq * kc * d  # dW
+        rest = 0.0
+        nbytes = 4 * sum(t.numel() for t in (q, s, lidx, tiles, kp, w, g, weighted, dw))
+        # The unfused rule: all fp32, dnx written by K3 (and read by K4).
+        old_flops, old_bytes = prod, nbytes
+        extra = ""
+        if need_ds:
+            n_ds += 1
+            p_ds = scatter_ds_feats_plain(p_dnx, lidx, tiles, ns, tile)
+            torch.cuda.synchronize()
+            ds_err, ds_rel = rel_err(ds, p_ds)
+            check(ds_rel <= 1e-4, f"K4 (in K3) call {i}: ds max relative error {ds_rel}")
+            k4["max_abs_err"] = max(k4["max_abs_err"], ds_err)
+            gw = tc_gemm(g, w2, trans_b=True)
+            gw64 = fp64_err(gw, g, w2.T)
+            check(gw64 <= 1e-5, f"K3 call {i}: gW vs float64 {gw64}")
+            del gw, p_ds
+            prod += 2.0 * nq * kc * d  # gW
+            # Influences and dnx over the real neighbors, and the scatter's adds.
+            rest = 2.0 * n_real * k_count * (c_in + 12) + n_real * c_in
+            nbytes += 4 * ns * c_in
+            old_flops += 2.0 * nq * kc * d + 2.0 * nq * h * k_count * (c_in + 6)
+            old_bytes += 4 * nq * h * c_in
+            rows, src = row[valid], p_dnx[valid]
+            lib_ms = time_ms(lambda: torch.zeros(ns, c_in, device=g.device)
+                             .index_add_(0, rows, src))
+            k4["library_ms"] += lib_ms
+            old["k4_bytes"] += 4 * (n_real * c_in + lidx.numel() + tiles.numel() + ns * c_in)
+            old["k4_flops"] += n_real * c_in
+            gw_ms = time_ms(lambda: tc_gemm(g, w2, trans_b=True))
+            mm_gw = time_ms(lambda: torch.matmul(g, w2.T))
+            del rows, src
+            extra = (f" ds max|d|={ds_err:.3e} rel={ds_rel:.3e} gW vs f64 {gw64:.1e};"
+                     f" index_add_ {lib_ms:.4f} ms")
+        else:
+            gw_ms = mm_gw = 0.0
+        del dw, ds, p_dw, p_dnx
+        ms = time_ms(lambda: kpconv_tiled_bwd(*args, **kw))
+        plain_ms = time_ms(lambda: kpconv_tiled_bwd_plain(*args, **kw), iters=3)
+        dw_ms = time_ms(lambda: tc_gemm(weighted, g, trans_a=True))
+        mm_ms = time_ms(lambda: torch.matmul(weighted.T, g)) + mm_gw
+        b_ms, b_by = bound(nbytes, rest, TF32_PASSES * prod)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", rest),
+                         ("prod_flops", prod), ("dw_ms", dw_ms), ("gw_ms", gw_ms),
+                         ("matmul_ms", mm_ms)):
+            k3[key] += val
+        old["k3_bytes"] += old_bytes
+        old["k3_flops"] += old_flops
+        print(f"  K3 call {i}: Nq={nq} H={h} (C,D)=({c_in},{d}) ds={need_ds} max|d|={err:.3e} "
+              f"rel={rel:.3e} dW vs f64 {dw64:.1e};{extra} kernel {ms:.4f} ms (products dW "
+              f"{dw_ms:.4f} + gW {gw_ms:.4f}; torch.matmul fp32 {mm_ms:.4f}) plain "
+              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+    k3["bound_ms"], k3["bound_by"] = bound(k3["nbytes"], k3["flops"],
+                                           TF32_PASSES * k3["prod_flops"])
+    products = k3["dw_ms"] + k3["gw_ms"]
+    rate = TF32_PASSES * k3["prod_flops"] / (products * 1e-3) / 1e12
+    print(f"[kernels] K3 (tiled, K4's scatter folded in) over {len(calls)} calls: "
+          f"{k3['ms']:.4f} ms = products {products:.4f} (dW {k3['dw_ms']:.4f} + gW "
+          f"{k3['gw_ms']:.4f}; {rate:.1f} TFLOP/s of TF32 product, "
+          f"{k3['prod_flops'] / 1e9:.1f} GFLOP x {TF32_PASSES}; torch.matmul fp32 on the same "
+          f"operands, allow_tf32=False: {k3['matmul_ms']:.4f}) + rest "
+          f"{k3['ms'] - products:.4f}; bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}; "
+          f"products as 3xTF32, dnx not written); unfused rule (all fp32, dnx written and read):"
+          f" K3 {bound(old['k3_bytes'], old['k3_flops'])[0]:.4f} + K4 "
+          f"{bound(old['k4_bytes'], old['k4_flops'])[0]:.4f} ms", flush=True)
+    print(f"[kernels] K4: its scatter runs inside K3's entry ({n_ds} of the {len(calls)} calls),"
+          f" no time of its own; index_add_ over the real rows of the plain dnx, with its zero "
+          f"fill: {k4['library_ms']:.4f} ms", flush=True)
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        k4[key] = k3[key]
+    return k3, k4
+
+
+def phase_k3_unfused(calls):
+    """K3's candidate-tile entry on a tree from before K4 was folded into
+    it (dW and dnx written): checked and timed as that tree's kernel, for
+    the comparison of K3 + K4 with the fused entry."""
     import torch
     from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd, kpconv_bwd_plain
 
@@ -446,7 +589,9 @@ def _scatter_phase(key, calls, kernel, plain, library, count):
     return res
 
 
-def phase_k4(calls):
+def phase_k4_unfused(calls):
+    """K4 on a tree from before it was folded into K3 (see
+    ``phase_k3_unfused``)."""
     import torch
     from pcrcg_tpu_torch.ops.kpconv_common import support_rows
     from pcrcg_tpu_torch.ops.kpconv_tiled import scatter_ds_feats, scatter_ds_feats_plain
@@ -650,15 +795,31 @@ def record_gathered_backward_inputs(cfg, batch, state, generator):
 
 
 def phase_k3g(calls):
+    """K3's gathered entry on every recorded call against its plain version
+    (relative 1e-4), dW bit for bit against a second run and within 1e-5 of
+    its largest entry against float64, as is gW_t's product; timed with
+    its products apart and ``torch.matmul`` in fp32 on their operands (a
+    diagnostic), as ``phase_k3_k4``.  On a tree whose products are not on
+    the tensor cores (``tc_gemm`` without the transposed layouts) only the
+    entry and its plain version are timed."""
+    import inspect
     import torch
-    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused_bwd, kpconv_fused_bwd_plain
+    from pcrcg_tpu_torch.ops.kpconv_fused import (
+        _gathered_weighted, kpconv_fused_bwd, kpconv_fused_bwd_plain,
+    )
+    from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
 
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    split = "trans_b" in inspect.signature(tc_gemm).parameters
+    torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmuls in full fp32
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, prod_flops=0.0, nbytes=0.0,
+               dw_ms=0.0, gw_ms=0.0, matmul_ms=0.0, old_flops=0.0)
     for i, (args, kw) in enumerate(calls):
         rel, nx_t, g, kp, w = args[:5]
         dnx_t, dw = kpconv_fused_bwd(*args, **kw)
+        dw_again = kpconv_fused_bwd(*args, **kw)[1]
         p_dnx, p_dw = kpconv_fused_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(dw, dw_again), f"K3 gathered call {i}: dW differs between two runs")
         pairs = [(dw, p_dw)] + ([] if dnx_t is None else [(dnx_t, p_dnx)])
         errs = [rel_err(a, b) for a, b in pairs]
         err, rel_e = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -666,28 +827,63 @@ def phase_k3g(calls):
         check(rel_e <= 1e-4, f"K3 gathered call {i}: max relative error {rel_e}")
         k_count, c_w, d = w.shape
         h, _, n = nx_t.shape
+        kc = k_count * c_w
+        w2 = w.reshape(kc, d)
         n_real = real_slots(nx_t, 1)
         need_dnx = dnx_t is not None
+        weighted_t = _gathered_weighted(rel, nx_t, kp, *args[5:8])[1].T.contiguous()
+        dw64 = fp64_err(dw.reshape(kc, d), weighted_t, g)
+        check(dw64 <= 1e-5, f"K3 gathered call {i}: dW vs float64 {dw64}")
         # A merged call (W8's 8 zero rows first) needs only the C feature
         # rows: rel is given, and autograd drops the dW and dnx rows over
         # the coordinates and pad.
         c_in = c_w - 8 if c_w > 8 and not bool(w[:, :8].any()) else c_w
-        flops = 2.0 * n_real * k_count * (c_in + 12) + 2.0 * n * k_count * c_in * d
+        prod = 2.0 * n * k_count * c_in * d  # dW
+        rest = 2.0 * n_real * k_count * (c_in + 12)  # weighted recomputed
         nbytes = 4 * (rel.numel() + h * c_in * n + g.numel() + kp.numel()
                       + 2 * k_count * c_in * d)
         if need_dnx:  # gW and dnx
-            flops += 2.0 * n * k_count * c_in * d + 2.0 * n_real * k_count * c_in
+            prod += 2.0 * n * k_count * c_in * d
+            rest += 2.0 * n_real * k_count * c_in
             nbytes += 4 * h * c_in * n
-        del dnx_t, dw, p_dnx, p_dw
+        del dnx_t, dw, dw_again, p_dnx, p_dw
         ms = time_ms(lambda: kpconv_fused_bwd(*args, **kw))
         plain_ms = time_ms(lambda: kpconv_fused_bwd_plain(*args, **kw), iters=3)
-        b_ms, b_by = bound(nbytes, flops)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
+        products = ""
+        if split:
+            dw_ms = time_ms(lambda: tc_gemm(weighted_t, g))
+            mm_ms = time_ms(lambda: torch.matmul(weighted_t, g))
+            gw_ms = gw64 = 0.0
+            if need_dnx:
+                gw64 = fp64_err(tc_gemm(w2, g, trans_b=True), w2, g.T)
+                check(gw64 <= 1e-5, f"K3 gathered call {i}: gW_t vs float64 {gw64}")
+                gw_ms = time_ms(lambda: tc_gemm(w2, g, trans_b=True))
+                mm_ms += time_ms(lambda: torch.matmul(w2, g.T))
+            for key, val in (("dw_ms", dw_ms), ("gw_ms", gw_ms), ("matmul_ms", mm_ms)):
+                res[key] += val
+            products = (f" (products dW {dw_ms:.4f} + gW {gw_ms:.4f}; torch.matmul fp32 "
+                        f"{mm_ms:.4f}; vs f64 dW {dw64:.1e} gW {gw64:.1e})")
+        del weighted_t
+        b_ms, b_by = bound(nbytes, rest, TF32_PASSES * prod)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", rest),
+                         ("prod_flops", prod), ("old_flops", rest + prod)):
             res[key] += val
         print(f"  K3 gathered call {i}: N={n} H={h} (C,D)=({c_in},{d}) dnx={need_dnx} "
-              f"max|d|={err:.3e} rel={rel_e:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+              f"max|d|={err:.3e} rel={rel_e:.3e} kernel {ms:.4f} ms{products} plain "
+              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"],
+                                             TF32_PASSES * res["prod_flops"])
+    summary = ""
+    if split:
+        products = res["dw_ms"] + res["gw_ms"]
+        rate = TF32_PASSES * res["prod_flops"] / (products * 1e-3) / 1e12
+        summary = (f" = products {products:.4f} (dW {res['dw_ms']:.4f} + gW {res['gw_ms']:.4f};"
+                   f" {rate:.1f} TFLOP/s of TF32 product; torch.matmul fp32 on the same "
+                   f"operands, allow_tf32=False: {res['matmul_ms']:.4f}) + rest "
+                   f"{res['ms'] - products:.4f}")
+    print(f"[kernels-untiled] K3 gathered over {len(calls)} calls: {res['ms']:.4f} ms{summary}; "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; products as 3xTF32); all-fp32 "
+          f"rule {bound(res['nbytes'], res['old_flops'])[0]:.4f} ms", flush=True)
     # No single PyTorch call computes dW, gW and the recomputed influences.
     res["library_ms"] = None
     return res
@@ -1054,11 +1250,16 @@ def main() -> int:
         state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
         gen = torch.Generator(device="cuda").manual_seed(1)
         calls = record_backward_inputs(cfg, batch, state, gen)
-        print(f"[kernels] recorded {len(calls['K3'])} K3, {len(calls['K4'])} K4 and "
-              f"{len(calls['K5'])} K5 calls in the backward of one full-width train_step",
-              flush=True)
-        results.update(K3=phase_k3(calls["K3"]), K4=phase_k4(calls["K4"]),
-                       K5=phase_k5(calls["K5"]))
+        print(f"[kernels] recorded {len(calls['K3'])} K3 and {len(calls['K5'])} K5 calls in "
+              "the backward of one full-width train_step", flush=True)
+        if "K4" in calls:  # a tree from before K4 was folded into K3
+            results.update(K3=phase_k3_unfused(calls["K3"]), K4=phase_k4_unfused(calls["K4"]))
+            k3_ms, k4_ms = results["K3"]["ms"], results["K4"]["ms"]
+            print(f"[kernels] K3 + K4 unfused: {k3_ms:.4f} + {k4_ms:.4f} = {k3_ms + k4_ms:.4f} ms",
+                  flush=True)
+        else:
+            results["K3"], results["K4"] = phase_k3_k4(calls["K3"])
+        results["K5"] = phase_k5(calls["K5"])
         del calls
         torch.cuda.empty_cache()
 

@@ -1,5 +1,5 @@
-// Device helpers shared by the KPConv kernels (K2 forward, K3 backward, K4
-// scatter on the candidate tiles; K6 / K7 / K8 on gathered features):
+// Device helpers shared by the KPConv kernels (K2 forward, K3 backward with
+// K4's scatter, on the candidate tiles; K6 / K7 / K8 on gathered features):
 // neighbor -> support row, and the influence of the K kernel points on one
 // neighbor, computed exactly as the JAX kernels' _compute_wgt does
 // (expanded |rel|^2 - 2 rel.kp + |kp|^2, each product and sum rounded

@@ -27,9 +27,9 @@
 //   it computes the tile's influences into shared memory (a thread per
 //   (neighbor, query)), the neighbor counts, and weighted_t [K*C, N] (a warp
 //   per channel, K accumulators a thread).
-//   Phase B (sgemm.cuh): out [N, D] = weighted_t^T x W, the hand-written
-//   fp32 GEMM K3 uses; the W contraction is part of the TPU kernel's
-//   body, so it is written here and not left to a library.
+//   Phase B (sgemm.cuh): out [N, D] = weighted_t^T x W, a hand-written
+//   fp32 GEMM on the CUDA cores; the W contraction is part of the TPU
+//   kernel's body, so it is written here and not left to a library.
 //
 // What bounds it on the H100: at level 0 the bytes of nx_t (53,248 x 40 x
 // 64 x 4 B = 545 MB for the (64, 64) conv, 0.16 ms at 3.35 TB/s), which

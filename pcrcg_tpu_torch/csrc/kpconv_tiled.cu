@@ -333,9 +333,19 @@ extern "C" int pcrcg_kpconv_tiled_reduce(const float* q, int nq, const float* s,
 
 // Phase B.  C [M, N] = A [M, K] x B [K, N], fp32 row-major, on the plan
 // of ops/tc_gemm.py::plan_gemm (`splits` partials of `k_chunk` rows;
-// workspace [splits, M, N] when splits > 1).  Returns a CUDA error code.
+// workspace [splits, M, N] when splits > 1).  trans_a / trans_b select
+// the transposed layouts of tc_gemm.cuh (A stored [K, M], B stored
+// [N, K]; not both), which K3 runs (csrc/kpconv_bwd.cu): this entry
+// exposes them to the card tests and timing.  Returns a CUDA error code.
 extern "C" int pcrcg_tc_gemm(const float* A, const float* B, float* C, int M, int N, int K,
-                             int splits, int k_chunk, float* workspace, void* stream) {
-  return (int)pcrcg::tc::gemm_3xtf32(M, N, K, splits, k_chunk, A, B, C, workspace,
-                                     (cudaStream_t)stream);
+                             int trans_a, int trans_b, int splits, int k_chunk,
+                             float* workspace, void* stream) {
+  using pcrcg::tc::gemm_3xtf32;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (trans_a && trans_b) return (int)cudaErrorInvalidValue;
+  if (trans_a)
+    return (int)gemm_3xtf32<true, false>(M, N, K, splits, k_chunk, A, B, C, workspace, st);
+  if (trans_b)
+    return (int)gemm_3xtf32<false, true>(M, N, K, splits, k_chunk, A, B, C, workspace, st);
+  return (int)gemm_3xtf32<false, false>(M, N, K, splits, k_chunk, A, B, C, workspace, st);
 }

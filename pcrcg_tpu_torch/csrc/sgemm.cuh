@@ -1,5 +1,6 @@
-// Shared-memory-tiled fp32 GEMM for the KPConv kernels (K3's two backward
-// products, K6 and K7's W contraction).
+// Shared-memory-tiled fp32 GEMM for K6 and K7's W contraction
+// (csrc/kpconv_fused.cu: out = weighted_t^T x W, the TRANS_A layout), its
+// only callers since K3's products moved to the tensor cores.
 //
 //   C[z][M, N] = op(A)[M, k0:k1] x op(B)[k0:k1, N],  k0 = z * k_chunk
 //
@@ -11,9 +12,12 @@
 // columns tx + 16 j (i, j < 4).  Operand loads walk the contiguous axis
 // of each operand, so neighbouring threads read neighbouring addresses in
 // every layout.  Everything stays fp32 on the CUDA cores.  K2's W
-// contraction runs on the tensor cores instead (tc_gemm.cuh: three TF32
-// products of the split operands, fp32-grade); moving these callers there
-// is later work.
+// contraction and K3's dW and gW run on the tensor cores instead
+// (tc_gemm.cuh: three TF32 products of the split operands, fp32-grade);
+// moving K6 and K7 there (its TRANS_A layout) is later work.  A copy cut
+// down to the one layout and no split measured 2-5 % slower for K6 and
+// K7 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py), so the general
+// kernel stays.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,24 +1,18 @@
-// Scatters of the KPConv training backward onto the support rows: K4 (the
-// feature gradient of kpconv_tiled_ad) and K5's backward (the strided
-// shortcut's max-pool).
+// The scatter of K5's backward (the strided shortcut's max-pool) onto the
+// support rows.  K4's scatter (the feature gradient of kpconv_tiled_ad) runs
+// inside K3's candidate-tile entry, csrc/kpconv_bwd.cu, which resolves each
+// (query, neighbor) row already and so never writes dnx.
 //
-// K4 replaces pcrcg_tpu/ops/kpconv_tiled.py::_dcand_kernel together with the
-// XLA _tile_block_scatter that followed it:
-//     ds[row(n, h), c] += dnx[n, h, c]     (shadow neighbors dropped)
-// row(n, h) is resolved from the tile-local lidx / tiles exactly as the
-// forward resolves it (kpconv_common.cuh).
-// K5 replaces pcrcg_tpu/ops/kpconv_tiled.py::_maxpool_bwd_kernel (+ the same
-// tile scatter):
+// K5 replaces pcrcg_tpu/ops/kpconv_tiled.py::_maxpool_bwd_kernel (+ the
+// XLA tile scatter after it):
 //     ds[inds[q, amax[q, c]], c] += g[q, c]   (shadow rows dropped)
 // with amax the first-maximum neighbor the forward saved, and the global
 // neighbor index taken directly (no lidx / tiles needed on a GPU).
 //
-// The TPU kernels turned the row scatter into per-group one-hot MXU
-// matmuls with bf16 hi/lo limbs, then a tile-granular one-hot matmul,
-// because TPU scatters are slow.  A GPU has native fp32 atomics in L2, so
-// both are one pass of atomicAdd.  K4: one warp per (query, neighbor),
-// lanes over channels (the dnx row is read coalesced, the ds row updated
-// coalesced).  K5: one resolve per query.  A block takes a group of
+// The TPU kernel turned the row scatter into per-group one-hot MXU matmuls
+// with bf16 hi/lo limbs, then a tile-granular one-hot matmul, because TPU
+// scatters are slow.  A GPU has native fp32 atomics in L2, so it is one
+// pass of atomicAdd, with one resolve per query.  A block takes a group of
 // queries, stages each one's H global rows (inds[q, :], int64) in shared
 // memory once, as int32 with shadows marked, then its threads walk the
 // group's (query, channel) entries: amax[q, c] and g[q, c] read coalesced,
@@ -26,44 +20,21 @@
 // a dependent global read of inds.  The group holds ~1,024 entries (one
 // query at C = 1,024): one warp per query, walking the channels, left the
 // deepest shortcut's backward (1,536 queries x 1,024 channels) 1,536 warps
-// of 32 serial steps, slower than a thread per entry.  The output's zero fill is
-// a memset on the same stream inside the C entry.
+// of 32 serial steps, slower than a thread per entry.  The output's zero
+// fill is a memset on the same stream inside the C entry.
 // The sum order changes from run to run (atomics), so results are not
 // bit-reproducible: callers hold them to a relative tolerance.  A
 // deterministic segmented sum is later work.
 //
-// What bounds it on the H100: bytes.  K4 reads dnx once (545 MB for the
-// level-0 (64, 64) conv, 0.16 ms at 3.35 TB/s) and updates ds; K5 reads g
-// and amax and updates ds.  K5's amax arrives as int64 (the forward's
-// torch.max indices), 8 bytes an entry where the function needs one, and
-// atomics on contended rows (each support row is a neighbor of ~H
-// queries) are the other limit.
+// What bounds it on the H100: bytes.  It reads g and amax and updates ds.
+// amax arrives as int64 (the forward's torch.max indices), 8 bytes an
+// entry where the function needs one, and atomics on contended rows (each
+// support row is a neighbor of ~H queries) are the other limit.
 #include <cuda_runtime.h>
-
-#include "kpconv_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void scatter_rows_kernel(const float* __restrict__ dnx, int nq, int h_count,
-                                    int c_in, const int* __restrict__ lidx,
-                                    const int* __restrict__ tiles, int m_tiles, int tile,
-                                    int ns, float* __restrict__ ds) {
-  const int lane = threadIdx.x & 31;
-  const long long pairs = (long long)nq * h_count;
-  const long long stride = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long p = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; p < pairs;
-       p += stride) {
-    const int n = (int)(p / h_count);
-    const int h = (int)(p - (long long)n * h_count);
-    const int row = pcrcg::support_row(lidx, tiles, n, h, h_count, m_tiles, tile, ns);
-    if (row < 0) continue;
-    const float* src = dnx + p * c_in;
-    float* dst = ds + (size_t)row * c_in;
-    for (int c = lane; c < c_in; c += 32) atomicAdd(dst + c, src[c]);
-  }
-}
 
 constexpr int kPoolEntries = 1024;  // (query, channel) entries a block group holds
 
@@ -108,19 +79,6 @@ cudaError_t grid_for(size_t work, int* grid) {
 }
 
 }  // namespace
-
-// K4: dnx [nq, h_count, c_in] f32, lidx [>= nq, h_count] int32, tiles
-// [groups, m_tiles] int32 -> ds [ns, c_in] f32, which the caller zeroes.
-extern "C" int pcrcg_scatter_ds_feats(const float* dnx, int nq, int h_count, int c_in,
-                                      const int* lidx, const int* tiles, int m_tiles,
-                                      int tile, int ns, float* ds, void* stream) {
-  if (nq <= 0 || h_count <= 0 || c_in <= 0) return 0;
-  int grid = 0;
-  if (cudaError_t err = grid_for((size_t)nq * h_count * 32, &grid)) return (int)err;
-  scatter_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      dnx, nq, h_count, c_in, lidx, tiles, m_tiles, tile, ns, ds);
-  return (int)cudaGetLastError();
-}
 
 // K5 backward: g [nq, c_in] f32, amax [nq, c_in] int64 (neighbor slot of the
 // first maximum), inds [nq, h_count] int64 (global rows, >= ns = shadow) ->

@@ -25,13 +25,17 @@ its CUDA kernel for a CUDA tensor, never falling back:
 * ``kpconv_fused_merged`` — K7, the same source: rel from rows 0-2 minus
   q (a shadow gathers zeros, rel = −q), nn over the feature rows ≥ 8 only;
 * ``kpconv_fused_bwd`` — K3's gathered entry, ``csrc/kpconv_bwd.cu``:
-  ``weighted`` recomputed from ``nx_t``, then dW, gW and dnx_t;
-* ``kpconv_bwd`` — K3's candidate-tile entry, the backward of
-  ``ops/kpconv_tiled.py::kpconv_tiled_ad``: ``weighted`` [Nq, K·C] is the
-  forward's phase-A output (kept by ``kpconv_tiled(keep_weighted=True)``),
-  the influences are recomputed from rel = support row − query (shadow:
-  −q), and dnx [Nq, H, C] covers every slot, shadows included (the
-  scatter, K4, drops them).
+  ``weighted`` recomputed from ``nx_t``, then dW, gW (both on the tensor
+  cores, ``csrc/tc_gemm.cuh``) and dnx_t.
+
+``kpconv_bwd_plain`` is the plain version of K3's candidate-tile entry,
+the backward of ``ops/kpconv_tiled.py::kpconv_tiled_ad``: ``weighted``
+[Nq, K·C] is the forward's phase-A output (kept by
+``kpconv_tiled(keep_weighted=True)``), the influences are recomputed from
+rel = support row − query (shadow: −q), and dnx [Nq, H, C] covers every
+slot, shadows included.  On the card that entry also scatters dnx onto
+the support rows (K4) and never writes it: ``kpconv_tiled.py::
+kpconv_tiled_bwd``.
 
 ``kpconv_fused_ad`` and ``kpconv_fused_merged_ad`` are the differentiable
 convs (gradients to the features and W only; the geometry is fixed, nn is a
@@ -46,13 +50,10 @@ from pcrcg_tpu_torch import kernels
 from pcrcg_tpu_torch.ops.kpconv_common import (
     INFLUENCE,
     check_gathered,
-    check_geometry,
     compute_wgt,
     neighbor_rel,
 )
-
-_DW_BLOCKS_PER_SM = 4  # blocks per SM the dW product aims at
-_DW_MIN_CHUNK = 256  # fewest queries a dW partial sums
+from pcrcg_tpu_torch.ops.tc_gemm import plan_for, workspace
 
 
 def kpconv_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
@@ -67,55 +68,6 @@ def kpconv_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weigh
     rel, _, _ = neighbor_rel(q_pts, s_pts, lidx, tiles, tile)
     w = compute_wgt(rel, kernel_points, kp_extent, influence, aggregation)  # [Nq, H, K]
     return dw, torch.einsum("nhk,nkc->nhc", w, gw)
-
-
-def _dw_chunk(nq: int, kc: int, d: int, sms: int) -> int:
-    """Queries per dW partial: enough partials that the dW product fills the
-    card's ``sms`` SMs even where dW itself has few 64 x 64 tiles (level 0)."""
-    tiles = -(-kc // 64) * -(-d // 64)
-    splits = max(1, -(-_DW_BLOCKS_PER_SM * sms // tiles))
-    chunk = max(_DW_MIN_CHUNK, -(-nq // splits))
-    return -(-chunk // 16) * 16
-
-
-def kpconv_bwd(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
-               kp_extent: float, influence: str = "linear", aggregation: str = "sum",
-               tile: int = 128, need_dnx: bool = True):
-    """K3: geometry as ``kpconv_tiled`` takes it, weights [K, C, D], g [Nq, D]
-    f32, weighted [Nq, K·C] f32 -> (dW [K, C, D], dnx [Nq, H, C] f32, or None
-    without ``need_dnx``)."""
-    if q_pts.device.type == "cpu":
-        return kpconv_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g,
-                                weighted, kp_extent, influence, aggregation, tile, need_dnx)
-    dev = check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregation)
-    nq, ns = q_pts.shape[0], s_pts.shape[0]
-    k_count, c_in, d = weights.shape
-    h_count = lidx.shape[1]
-    f32 = torch.float32
-    kernels.require(weights, "weights", f32, dev)
-    kernels.require(g, "g", f32, dev, (nq, d))
-    kernels.require(weighted, "weighted", f32, dev, (nq, k_count * c_in))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = _dw_chunk(nq, k_count * c_in, d, sms)
-    splits = -(-nq // chunk)
-    partial = (torch.empty(splits, k_count * c_in, d, device=dev, dtype=f32)
-               if splits > 1 else None)
-    dw = torch.empty(k_count, c_in, d, device=dev, dtype=f32)
-    gw = torch.empty(nq, k_count * c_in, device=dev, dtype=f32) if need_dnx else None
-    dnx = torch.empty(nq, h_count, c_in, device=dev, dtype=f32) if need_dnx else None
-    sigma = kp_extent * 0.3
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = kernels.bind("kpconv_bwd", "pcrcg_kpconv_bwd", "pipipipiipipiipp" "ffiii" "ppppp")(
-        q_pts.data_ptr(), nq, s_pts.data_ptr(), ns, lidx.data_ptr(), h_count,
-        tiles.data_ptr(), tiles.shape[1], tile, kernel_points.data_ptr(), k_count,
-        weights.data_ptr(), c_in, d, g.data_ptr(), weighted.data_ptr(),
-        float(kp_extent), float(2.0 * sigma**2 + 1e-9), INFLUENCE[influence],
-        int(aggregation == "closest"), chunk, ptr(partial), dw.data_ptr(), ptr(gw),
-        ptr(dnx), kernels.stream_handle(dev),
-    )
-    kernels.check_launch(err, "kpconv_bwd")
-    kernels.count_launch("K3")
-    return dw, dnx
 
 
 def _gathered_weighted(rel, nx_t, kernel_points, kp_extent, influence, aggregation):
@@ -236,22 +188,23 @@ def kpconv_fused_bwd(rel, nx_t, g, kernel_points, weights, kp_extent: float,
     f32 = torch.float32
     kernels.require(weights, "weights", f32, dev, (k_count, c_in, d))
     kernels.require(g, "g", f32, dev, (n, d))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = _dw_chunk(n, k_count * c_in, d, sms)
-    splits = -(-n // chunk)
-    partial = (torch.empty(splits, k_count * c_in, d, device=dev, dtype=f32)
-               if splits > 1 else None)
-    weighted_t = torch.empty(k_count * c_in, n, device=dev, dtype=f32)
+    kc = k_count * c_in
+    dw_plan = plan_for(kc, d, n, dev)  # dW = weighted_t @ g
+    gw_plan = plan_for(kc, n, d, dev)  # gW_t = W @ g^T
+    ws = workspace(dev, (dw_plan, kc, d), *([(gw_plan, kc, n)] if need_dnx else []))
+    weighted_t = torch.empty(kc, n, device=dev, dtype=f32)
     dw = torch.empty(k_count, c_in, d, device=dev, dtype=f32)
-    gw_t = torch.empty(k_count * c_in, n, device=dev, dtype=f32) if need_dnx else None
+    gw_t = torch.empty(kc, n, device=dev, dtype=f32) if need_dnx else None
     dnx_t = torch.empty(h_count, c_in, n, device=dev, dtype=f32) if need_dnx else None
     sigma = kp_extent * 0.3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = kernels.bind("kpconv_bwd", "pcrcg_kpconv_fused_bwd", "ppiiipipipffiiippppp" "p")(
+    err = kernels.bind("kpconv_bwd", "pcrcg_kpconv_fused_bwd",
+                       "ppiiipipip" "ffii" "iiii" "pppppp")(
         rel.data_ptr(), nx_t.data_ptr(), n, h_count, c_in, kernel_points.data_ptr(), k_count,
         weights.data_ptr(), d, g.data_ptr(), float(kp_extent), float(2.0 * sigma**2 + 1e-9),
-        INFLUENCE[influence], int(aggregation == "closest"), chunk, weighted_t.data_ptr(),
-        ptr(partial), dw.data_ptr(), ptr(gw_t), ptr(dnx_t), kernels.stream_handle(dev),
+        INFLUENCE[influence], int(aggregation == "closest"), *dw_plan, *gw_plan,
+        weighted_t.data_ptr(), ptr(ws), dw.data_ptr(), ptr(gw_t), ptr(dnx_t),
+        kernels.stream_handle(dev),
     )
     kernels.check_launch(err, "kpconv_fused_bwd")
     kernels.count_launch("K3")

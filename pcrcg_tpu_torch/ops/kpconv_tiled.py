@@ -21,31 +21,34 @@ and launches its CUDA kernel for a CUDA tensor, never falling back:
   (``kpconv_tiled_reduce``: gather + influence + reduce into ``weighted``)
   and phase B (``ops/tc_gemm.py::tc_gemm``: the W contraction on the
   tensor cores, error-compensated TF32, fp32-grade);
-* ``scatter_ds_feats`` — K4, ``csrc/tile_scatter.cu``: the feature
-  gradient ``ds[row(n, h)] += dnx[n, h]``;
+* ``kpconv_tiled_bwd`` — K3's candidate-tile entry with K4 folded in,
+  ``csrc/kpconv_bwd.cu``: dW and gW on the tensor cores
+  (``csrc/tc_gemm.cuh``), then dnx (K3) scattered straight onto the
+  support rows, ``ds[row(n, h)] += dnx[n, h]`` (K4), so dnx is never
+  written; its plain version is K3's (``kpconv_fused.py::
+  kpconv_bwd_plain``) then K4's (``scatter_ds_feats_plain``);
 * ``maxpool_bwd`` — K5, ``csrc/tile_scatter.cu``: the max-pool gradient
   to the first-maximum neighbor.
 
 ``kpconv_tiled_ad`` is the differentiable conv (gradients to the features
 and W only, as the JAX package's ``stop_gradient``s give); its backward
-runs K3 (``ops/kpconv_fused.py::kpconv_bwd``) and then K4.
+is ``kpconv_tiled_bwd``.
 """
 from __future__ import annotations
 
 import torch
 
 from pcrcg_tpu_torch import kernels
-from pcrcg_tpu_torch.ops import kpconv_fused
 from pcrcg_tpu_torch.ops.kpconv_common import (
-    GROUP,
     INFLUENCE,
     check_geometry,
     compute_wgt,
     neighbor_rel,
     support_rows,
 )
+from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd_plain
 from pcrcg_tpu_torch.ops.masked import pad_gather
-from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
+from pcrcg_tpu_torch.ops.tc_gemm import plan_for, tc_gemm, workspace
 
 
 def kpconv_tiled_reduce_plain(q_pts, s_pts, s_feats, lidx, tiles, kernel_points,
@@ -134,31 +137,66 @@ def scatter_ds_feats_plain(dnx, lidx, tiles, ns: int, tile: int = 128):
     return ds.index_add_(0, row[valid], dnx[valid])
 
 
-def scatter_ds_feats(dnx, lidx, tiles, ns: int, tile: int = 128):
-    """K4: dnx [Nq, H, C] f32, lidx [G·128, H] int32, tiles [G, M] int32 ->
-    ds_feats [Ns, C] f32 (atomic sums: the order varies run to run)."""
-    if dnx.device.type == "cpu":
-        return scatter_ds_feats_plain(dnx, lidx, tiles, ns, tile)
-    dev = dnx.device
-    nq, h_count, c_in = dnx.shape
-    kernels.require(dnx, "dnx", torch.float32, dev)
-    kernels.require(lidx, "lidx", torch.int32, dev)
-    kernels.require(tiles, "tiles", torch.int32, dev)
-    if lidx.shape[1] != h_count or lidx.shape[0] < nq or nq > tiles.shape[0] * GROUP:
-        raise ValueError(f"dnx {tuple(dnx.shape)} does not fit lidx {tuple(lidx.shape)} "
-                         f"/ tiles {tuple(tiles.shape)}")
-    ds = torch.zeros(ns, c_in, device=dev, dtype=torch.float32)
-    err = kernels.bind("tile_scatter", "pcrcg_scatter_ds_feats", "piiippiiipp")(
-        dnx.data_ptr(), nq, h_count, c_in, lidx.data_ptr(), tiles.data_ptr(),
-        tiles.shape[1], tile, ns, ds.data_ptr(), kernels.stream_handle(dev),
+def kpconv_tiled_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
+                           kp_extent: float, influence: str = "linear",
+                           aggregation: str = "sum", tile: int = 128, need_ds: bool = True):
+    """Plain PyTorch version of ``kpconv_tiled_bwd``: K3's
+    (``kpconv_bwd_plain``), then K4's (``scatter_ds_feats_plain``) ->
+    (dW [K, C, D], ds [Ns, C] or None)."""
+    dw, dnx = kpconv_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
+                               kp_extent, influence, aggregation, tile, need_dnx=need_ds)
+    if not need_ds:
+        return dw, None
+    return dw, scatter_ds_feats_plain(dnx, lidx, tiles, s_pts.shape[0], tile)
+
+
+def kpconv_tiled_bwd(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
+                     kp_extent: float, influence: str = "linear", aggregation: str = "sum",
+                     tile: int = 128, need_ds: bool = True):
+    """K3's candidate-tile entry with K4 folded in: geometry as
+    ``kpconv_tiled`` takes it, weights [K, C, D], g [Nq, D] f32, weighted
+    [Nq, K·C] f32 (the forward's phase A) -> (dW [K, C, D] f32, bit for bit
+    the same on every run; ds [Ns, C] f32, the feature gradient, atomic
+    sums in an order that varies run to run, or None without
+    ``need_ds``).  Counts a launch of K3 and, with ``need_ds``, of K4."""
+    if q_pts.device.type == "cpu":
+        return kpconv_tiled_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g,
+                                      weighted, kp_extent, influence, aggregation, tile,
+                                      need_ds)
+    dev = check_geometry(q_pts, s_pts, lidx, tiles, kernel_points, influence, aggregation)
+    nq, ns = q_pts.shape[0], s_pts.shape[0]
+    k_count, c_in, d = weights.shape
+    kc = k_count * c_in
+    f32 = torch.float32
+    kernels.require(weights, "weights", f32, dev)
+    kernels.require(g, "g", f32, dev, (nq, d))
+    kernels.require(weighted, "weighted", f32, dev, (nq, kc))
+    dw_plan = plan_for(kc, d, nq, dev)  # dW = weighted^T @ g
+    gw_plan = plan_for(nq, kc, d, dev)  # gW = g @ W^T
+    ws = workspace(dev, (dw_plan, kc, d), *([(gw_plan, nq, kc)] if need_ds else []))
+    dw = torch.empty(k_count, c_in, d, device=dev, dtype=f32)
+    gw = torch.empty(nq, kc, device=dev, dtype=f32) if need_ds else None
+    ds = torch.empty(ns, c_in, device=dev, dtype=f32) if need_ds else None  # zeroed by the launch
+    sigma = kp_extent * 0.3
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = kernels.bind("kpconv_bwd", "pcrcg_kpconv_bwd",
+                       "pipipipiipipiipp" "ffii" "iiii" "ppppp")(
+        q_pts.data_ptr(), nq, s_pts.data_ptr(), ns, lidx.data_ptr(), lidx.shape[1],
+        tiles.data_ptr(), tiles.shape[1], tile, kernel_points.data_ptr(), k_count,
+        weights.data_ptr(), c_in, d, g.data_ptr(), weighted.data_ptr(),
+        float(kp_extent), float(2.0 * sigma**2 + 1e-9), INFLUENCE[influence],
+        int(aggregation == "closest"), *dw_plan, *gw_plan, ptr(ws), dw.data_ptr(), ptr(gw),
+        ptr(ds), kernels.stream_handle(dev),
     )
-    kernels.check_launch(err, "scatter_ds_feats")
-    kernels.count_launch("K4")
-    return ds
+    kernels.check_launch(err, "kpconv_tiled_bwd")
+    kernels.count_launch("K3")
+    if need_ds:
+        kernels.count_launch("K4")
+    return dw, ds
 
 
 class _KPConvTiledFn(torch.autograd.Function):
-    """K2 forward keeping ``weighted``; backward K3 (dW, dnx) then K4."""
+    """K2 forward keeping ``weighted``; backward K3 with K4 folded in."""
 
     @staticmethod
     def forward(ctx, q_pts, s_pts, s_feats, weights, lidx, tiles, kernel_points,
@@ -175,12 +213,10 @@ class _KPConvTiledFn(torch.autograd.Function):
     def backward(ctx, g_out, _g_nn):
         q_pts, s_pts, lidx, tiles, kernel_points, weights, weighted = ctx.saved_tensors
         kp_extent, influence, aggregation, tile = ctx.conf
-        need_feats = ctx.needs_input_grad[2]
-        dw, dnx = kpconv_fused.kpconv_bwd(
+        dw, ds = kpconv_tiled_bwd(
             q_pts, s_pts, lidx, tiles, kernel_points, weights, g_out.contiguous(), weighted,
-            kp_extent, influence, aggregation, tile, need_dnx=need_feats,
+            kp_extent, influence, aggregation, tile, need_ds=ctx.needs_input_grad[2],
         )
-        ds = scatter_ds_feats(dnx, lidx, tiles, s_pts.shape[0], tile) if need_feats else None
         return (None, None, ds, dw if ctx.needs_input_grad[3] else None,
                 None, None, None, None, None, None, None)
 

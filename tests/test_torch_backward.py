@@ -1,7 +1,9 @@
 """The KPConv training backward of the port against the JAX package, on the
 CPU: the plain versions of K3 (``kpconv_bwd_plain``), K4
-(``scatter_ds_feats_plain``) and K5 (``maxpool_bwd_plain``), and the
-autograd of ``kpconv_tiled_ad`` / ``max_pool_tiled`` that runs them.
+(``scatter_ds_feats_plain``) and K5 (``maxpool_bwd_plain``), the CPU
+branch of ``kpconv_tiled_bwd`` (on the card one launch, K3 with K4's
+scatter folded in), and the autograd of ``kpconv_tiled_ad`` /
+``max_pool_tiled`` that runs them.
 
 References: the Pallas kernels in interpret mode (``kpconv_fused_bwd``,
 ``_scatter_ds_feats``, ``max_pool_tiled``'s VJP, ``jax.grad`` of
@@ -29,6 +31,7 @@ from pcrcg_tpu_torch.ops.kpconv_common import neighbor_rel
 from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd_plain
 from pcrcg_tpu_torch.ops.kpconv_tiled import (
     kpconv_tiled_ad,
+    kpconv_tiled_bwd,
     kpconv_tiled_plain,
     max_pool_tiled,
     scatter_ds_feats_plain,
@@ -109,6 +112,36 @@ def test_k4_plain_matches_pallas(influence, aggregation, c, d):
     want = j_scatter_ds_feats(J(dnx_t), J(s["lidx"]), J(s["tiles"]), s["sup"].shape[0], c,
                               TILE, interpret=True)
     _close(got.numpy(), np.asarray(want), what="ds_feats")
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+def test_k3_k4_wrapper_cpu_branch_matches_jax_vjp(influence, aggregation, c, d):
+    """``kpconv_tiled_bwd`` on CPU tensors runs plain K3 then plain K4; its
+    (dW, ds) equal the VJP of JAX's ``kpconv_tiled_ad`` (Pallas in
+    interpret mode) under the cotangent g, at the file's Pallas tolerance.
+    Without ``need_ds`` it returns the same dW and no ds."""
+    s = _setup(7, c=c, d=d)
+    q, sup, lidx, tiles, kp = _geom(s)
+    w = T(s["w"])
+    _, _, weighted = kpconv_tiled_plain(q, sup, T(s["feats"]), lidx, tiles, kp, w, EXTENT,
+                                        influence, aggregation, TILE, keep_weighted=True)
+    args = (q, sup, lidx, tiles, kp, w, T(s["g"]), weighted, EXTENT, influence, aggregation,
+            TILE)
+    dw, ds = kpconv_tiled_bwd(*args)
+
+    def conv(f_, w_):
+        return j_kpconv_tiled_ad(
+            J(s["q"]), J(s["sup"]), f_, J(s["lidx"]), J(s["tiles"]), J(s["gidx"]),
+            J(s["kp"]), w_, EXTENT, influence, aggregation, interpret=True, tile=TILE,
+            feat_limbs=2,
+        )[0]
+
+    _, vjp = jax.vjp(conv, J(s["feats"]), J(s["w"]))
+    want_ds, want_dw = vjp(J(s["g"]))
+    _close(ds.numpy(), np.asarray(want_ds), what="ds_feats vs JAX VJP")
+    _close(dw.numpy(), np.asarray(want_dw), what="dW vs JAX VJP")
+    dw_only, no_ds = kpconv_tiled_bwd(*args, need_ds=False)
+    assert no_ds is None and torch.equal(dw_only, dw)
 
 
 def _port_grads(s, influence, aggregation, dtype=torch.float32, plain=False):

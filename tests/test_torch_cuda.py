@@ -11,8 +11,6 @@ import pytest
 import torch
 
 from pcrcg_tpu_torch.ops.kpconv_fused import (
-    kpconv_bwd,
-    kpconv_bwd_plain,
     kpconv_fused,
     kpconv_fused_bwd,
     kpconv_fused_bwd_plain,
@@ -27,13 +25,13 @@ from pcrcg_tpu_torch.ops.kpconv_pallas import (
 from pcrcg_tpu_torch.ops.kpconv_tiled import (
     kpconv_tiled,
     kpconv_tiled_ad,
+    kpconv_tiled_bwd,
+    kpconv_tiled_bwd_plain,
     kpconv_tiled_plain,
     kpconv_tiled_reduce,
     max_pool_tiled,
     maxpool_bwd,
     maxpool_bwd_plain,
-    scatter_ds_feats,
-    scatter_ds_feats_plain,
 )
 from pcrcg_tpu_torch.ops.tc_gemm import BK, GemmPlan, plan_gemm, tc_gemm
 from pcrcg_tpu_torch.ops.search_kernel import (
@@ -125,34 +123,48 @@ def test_k2_kernel_matches_plain(cuda, influence, aggregation, c, d):
 
 @pytest.mark.parametrize("influence,aggregation,c,d", CASES)
 def test_k3_kernel_matches_plain(cuda, influence, aggregation, c, d):
+    """K3's candidate-tile entry (with K4's scatter folded in) against K3's
+    then K4's plain versions: dW, and ds unless ``need_ds`` is off."""
     q, sup, feats, lidx, tiles, kp, w, _ = _conv_inputs(cuda, c, d, seed=2)
     _, _, weighted = kpconv_tiled_plain(q, sup, feats, lidx, tiles, kp, w, 0.06, influence,
                                         aggregation, keep_weighted=True)
     g = torch.randn(q.shape[0], d, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(0))
-    for need_dnx in (True, False):
+    for need_ds in (True, False):
         args = (q, sup, lidx, tiles, kp, w, g, weighted, 0.06, influence, aggregation, 128)
-        dw, dnx = kpconv_bwd(*args, need_dnx=need_dnx)
-        want_dw, want_dnx = kpconv_bwd_plain(*args, need_dnx=need_dnx)
+        dw, ds = kpconv_tiled_bwd(*args, need_ds=need_ds)
+        want_dw, want_ds = kpconv_tiled_bwd_plain(*args, need_ds=need_ds)
         torch.cuda.synchronize()
         # fp32 sums over Nq (dW, split into partials) and D (gW) in
-        # another order than cuBLAS's.
+        # another order than cuBLAS's; ds in atomics' order.
         assert _rel_err(dw, want_dw) <= 1e-4
-        assert (dnx is None) == (not need_dnx)
-        if need_dnx:
-            assert _rel_err(dnx, want_dnx) <= 1e-4
+        assert (ds is None) == (not need_ds)
+        if need_ds:
+            assert _rel_err(ds, want_ds) <= 1e-4
 
 
 @pytest.mark.parametrize("c", [1, 64, 257])
-def test_k4_kernel_matches_plain(cuda, c):
-    q, sup, _, lidx, tiles, *_ = _conv_inputs(cuda, 4, 4, seed=3)
-    dnx = torch.randn(q.shape[0], lidx.shape[1], c, device=cuda,
-                      generator=torch.Generator(device=cuda).manual_seed(1))
-    got = scatter_ds_feats(dnx, lidx, tiles, sup.shape[0])
-    want = scatter_ds_feats_plain(dnx, lidx, tiles, sup.shape[0])
+def test_k4_fused_scatter_matches_plain(cuda, c):
+    """K4's scatter inside K3's entry, at a width of one channel, a warp's
+    multiple and a ragged one, with the influences of real geometry:
+    ds against the plain K3 then K4, and no row gets a shadow's share."""
+    q, sup, _, lidx, tiles, kp, _, _ = _conv_inputs(cuda, 4, 4, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    w = torch.randn(15, c, 24, device=cuda, generator=gen)
+    g = torch.randn(q.shape[0], 24, device=cuda, generator=gen)
+    weighted = torch.randn(q.shape[0], 15 * c, device=cuda, generator=gen)
+    args = (q, sup, lidx, tiles, kp, w, g, weighted, 0.06)
+    _, got = kpconv_tiled_bwd(*args)
+    _, want = kpconv_tiled_bwd_plain(*args)
     torch.cuda.synchronize()
-    # Atomic sums: ~H terms per row, in an order that varies run to run.
-    assert _rel_err(got, want) <= 1e-5
+    # Atomic sums over ~H terms per row; gW in 3xTF32.
+    assert _rel_err(got, want) <= 1e-4
+    from pcrcg_tpu_torch.ops.kpconv_common import support_rows
+
+    row, valid = support_rows(lidx, tiles, q.shape[0], sup.shape[0], 128)
+    unseen = torch.ones(sup.shape[0], dtype=torch.bool, device=cuda)
+    unseen[row[valid]] = False
+    assert not bool(got[unseen].any())
 
 
 @pytest.mark.parametrize("c", [3, 128])
@@ -211,10 +223,64 @@ def test_k2_is_bit_identical_run_to_run(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# Each layout K3 runs, at main-path shapes and ragged ones: (layout, M, N,
+# K) of op(A) [M, K] x op(B) [K, N]; "ta": A stored [K, M], "tb": B stored
+# [N, K].
+LAYOUT_CASES = [
+    ("ta", 960, 64, 53248),  # tiled dW at level 0: the longest reduction
+    ("ta", 15, 128, 53248),  # block 0's dW: 60-byte rows (the 4-byte path)
+    ("ta", 7680, 512, 1536),  # tiled dW at level 3
+    ("tb", 53248, 960, 64),  # tiled gW at level 0
+    ("tb", 1536, 7680, 512),  # tiled gW at level 3
+    ("tb", 960, 5000, 64),  # gathered gW_t, ragged N
+    ("nn", 960, 64, 53248),  # gathered dW at level 0
+    ("tb", 333, 18, 21),  # ragged in every dimension (the 4-byte path)
+]
+
+
+@pytest.mark.parametrize("layout,m,n,k", LAYOUT_CASES)
+def test_tc_gemm_layouts_match_float64(cuda, layout, m, n, k):
+    """fp32-grade in every layout: within 1e-5 of the largest entry of the
+    float64 product.  In the dW cases (the reductions over queries, K >
+    1000) A stands for K3's ``weighted`` and is nonnegative, so the long
+    sums do not cancel."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    trans_a, trans_b = layout == "ta", layout == "tb"
+    a = torch.randn(*((k, m) if trans_a else (m, k)), device=cuda, generator=gen)
+    a = a.abs() if k > 1000 else a
+    b = 0.1 * torch.randn(*((n, k) if trans_b else (k, n)), device=cuda, generator=gen)
+    got = tc_gemm(a, b, trans_a=trans_a, trans_b=trans_b)
+    exact = (a.double().T if trans_a else a.double()) @ (b.double().T if trans_b else b.double())
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+def test_k3_dw_is_bit_identical_run_to_run(cuda):
+    """dW's split-K partials are summed in a fixed order, in both entries:
+    two runs agree bit for bit (ds, by atomics, need not)."""
+    q, sup, feats, lidx, tiles, kp, w, _ = _conv_inputs(cuda, 64, 64, seed=13, nq=2000)
+    _, _, weighted = kpconv_tiled_plain(q, sup, feats, lidx, tiles, kp, w, 0.06,
+                                        keep_weighted=True)
+    g = torch.randn(q.shape[0], 64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    assert plan_gemm(15 * 64, 64, q.shape[0]).splits > 1
+    args = (q, sup, lidx, tiles, kp, w, g, weighted, 0.06)
+    assert torch.equal(kpconv_tiled_bwd(*args)[0], kpconv_tiled_bwd(*args)[0])
+    rel, nx_t, _, _, kp, w, _ = _gathered_inputs(cuda, 64, 64, seed=13)
+    g = g[:rel.shape[0]].contiguous()
+    args = (rel, nx_t, g, kp, w, 0.06)
+    assert torch.equal(kpconv_fused_bwd(*args)[1], kpconv_fused_bwd(*args)[1])
+
+
 def test_tc_gemm_rejects_bad_arguments(cuda):
     a = torch.zeros(10, 8, device=cuda)
     with pytest.raises(ValueError):
         tc_gemm(a, torch.zeros(9, 4, device=cuda))
+    with pytest.raises(ValueError):  # trans_b: b is [N, K]
+        tc_gemm(a, torch.zeros(8, 4, device=cuda), trans_b=True)
+    with pytest.raises(ValueError):
+        tc_gemm(a, torch.zeros(10, 4, device=cuda), trans_a=True, trans_b=True)
     with pytest.raises(ValueError):
         tc_gemm(a, torch.zeros(8, 4, device=cuda, dtype=torch.float64))
     with pytest.raises(RuntimeError):  # a plan whose partials do not cover K

@@ -1,6 +1,8 @@
-"""K2's phase B on the tensor cores (``pcrcg_tpu_torch/ops/tc_gemm.py``,
-``csrc/tc_gemm.cuh``): the arithmetic of the error-compensated TF32
-product and the host-side split-K planner, on the CPU.
+"""The KPConv W products on the tensor cores (``pcrcg_tpu_torch/ops/
+tc_gemm.py``, ``csrc/tc_gemm.cuh``): K2's phase B and K3's dW and gW.  The
+arithmetic of the error-compensated TF32 product, the host-side split-K
+planner at K2's and K3's main-path shapes, and the layouts' CPU contract,
+on the CPU.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 here a plain emulation of its arithmetic shows that three TF32 products of
@@ -20,8 +22,10 @@ from pcrcg_tpu_torch.ops.tc_gemm import (
     BK,
     MAX_SPLITS,
     MIN_K_TILES,
+    TALL_SHARE,
     WAVES,
     GemmPlan,
+    max_splits,
     plan_gemm,
     tc_gemm,
 )
@@ -91,13 +95,49 @@ MAIN_PATH_GEMMS = [
 ]
 
 
-@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)))
+# The 11 K3 calls of one training step at the default Config(): (Nq, C, D)
+# per conv, block 0 (C = 1, the ones column) with dW only.
+K3_CALLS = [
+    (53248, 1, 128), (53248, 64, 64), (18432, 64, 64), (18432, 128, 128), (18432, 128, 128),
+    (5120, 128, 128), (5120, 256, 256), (5120, 256, 256), (1536, 256, 256), (1536, 512, 512),
+    (1536, 512, 512),
+]
+# Their products as (M, K, N) of op(A) [M, K] x op(B) [K, N]: dW [15 C, D]
+# over Nq (both entries), the tiled gW [Nq, 15 C] and the gathered gW_t
+# [15 C, Nq] over D.
+K3_GEMMS = sorted({(15 * c, nq, d) for nq, c, d in K3_CALLS}
+                  | {(nq, d, 15 * c) for nq, c, d in K3_CALLS if c > 1}
+                  | {(15 * c, d, nq) for nq, c, d in K3_CALLS if c > 1})
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)) + K3_GEMMS)
 def test_plan_fills_the_card_on_the_main_path(m, k, n):
     plan = plan_gemm(m, n, k, n_sm=132)
     assert plan.blocks(m, n) >= 132
 
 
-@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)) + [(300, 15, 128),
+@pytest.mark.parametrize("m,k,n", K3_GEMMS)
+def test_plan_bounds_the_workspace(m, k, n):
+    """The partials hold at most MAX_SPLITS outputs, or a TALL_SHARE-th of
+    the operands where that is more (K3's dW), and never more than 48 MiB
+    at K3's shapes."""
+    plan = plan_gemm(m, n, k, n_sm=132)
+    floats = plan.splits * m * n if plan.splits > 1 else 0
+    assert floats <= max(MAX_SPLITS * m * n, k * (m + n) // TALL_SHARE)
+    assert floats * 4 <= 48 * 2**20
+
+
+def test_plan_fills_the_card_for_the_level_0_dw():
+    """dW [960, 64] over 53,248 queries has 8 output tiles: the planner cuts
+    the reduction into more than MAX_SPLITS partials to put WAVES blocks on
+    each SM, where MAX_SPLITS partials would give 64 blocks for 132 SMs."""
+    plan = plan_gemm(960, 64, 53248, n_sm=132)
+    assert plan.splits > MAX_SPLITS
+    assert plan.blocks(960, 64) >= WAVES * 132 * 0.95
+    assert plan.splits <= max_splits(960, 64, 53248)
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)) + K3_GEMMS + [(300, 15, 128),
                                                                   (500, 960, 64),
                                                                   (64, 7680, 512),
                                                                   (1, 1, 1)])
@@ -113,13 +153,13 @@ def test_plan_partials_are_fixed_and_cover_the_reduction(m, k, n):
     assert plan.k_chunk % BK == 0
 
 
-@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)) + [(128, 64, 64),
-                                                                  (300, 15, 128)])
+@pytest.mark.parametrize("m,k,n", sorted(set(MAIN_PATH_GEMMS)) + K3_GEMMS + [(128, 64, 64),
+                                                                            (300, 15, 128)])
 def test_plan_splits_only_while_the_tiles_do_not_fill_the_card(m, k, n):
     plan = plan_gemm(m, n, k, n_sm=132)
     tiles = plan.blocks(m, n) // plan.splits
     k_tiles = -(-k // BK)
-    assert 1 <= plan.splits <= MAX_SPLITS
+    assert 1 <= plan.splits <= max_splits(m, n, k)
     if plan.splits > 1:  # still short of the target before the last split
         assert tiles * (plan.splits - 1) < WAVES * 132
         assert plan.k_chunk // BK >= MIN_K_TILES
@@ -132,10 +172,23 @@ def test_plan_rejects_an_empty_product():
         plan_gemm(0, 64, 64)
 
 
-def test_tc_gemm_on_the_cpu_is_the_plain_product():
-    a, b = (torch.from_numpy(x) for x in _operands(37, 3, 20, seed=1))
-    assert torch.equal(tc_gemm(a, b), a @ b)
-    assert torch.equal(tc_gemm(a, b, GemmPlan(2, 32)), a @ b)
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False), (False, True)])
+def test_tc_gemm_on_the_cpu_is_the_plain_product(trans_a, trans_b):
+    """op(a) @ op(b) for each layout: a given [K, M] with trans_a (K3's
+    dW = weighted^T g), b given [N, K] with trans_b (gW = g W^T)."""
+    a, b = (torch.from_numpy(x) for x in _operands(37, 3, 20, seed=1))  # [37, 45], [45, 20]
+    a_in = a.T.contiguous() if trans_a else a
+    b_in = b.T.contiguous() if trans_b else b
+    for plan in (None, GemmPlan(2, 32)):
+        got = tc_gemm(a_in, b_in, plan, trans_a=trans_a, trans_b=trans_b)
+        assert got.shape == (37, 20)
+        assert torch.equal(got, a @ b)
+
+
+def test_tc_gemm_takes_one_transposed_operand_at_most():
+    a = torch.zeros(4, 4)
+    with pytest.raises(ValueError):
+        tc_gemm(a, a, trans_a=True, trans_b=True)
 
 
 def test_k2_on_the_cpu_is_phase_a_then_the_product():
