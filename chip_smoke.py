@@ -18,8 +18,8 @@ Phases, each printed as it completes:
                to back behind a sleep that covers their enqueueing), beside
                the least time the card could take (bytes / 3.35 TB/s or
                flops at the card's peak for their type: fp32 67 TFLOP/s;
-               the W products of K2 and K3 as three TF32 passes at 495
-               TFLOP/s).  K2 also shows its two phases apart, beside
+               the W products of K2, K3, K6 and K7 as three TF32 passes at
+               495 TFLOP/s).  K2 also shows its two phases apart, beside
                ``torch.matmul`` in fp32 on phase B's operands; K3 its two
                products apart, beside ``torch.matmul`` in fp32 on theirs
                (diagnostics; the port never calls it), with dW bit for bit
@@ -41,11 +41,13 @@ Phases, each printed as it completes:
                give the same loss terms, gradients and parameters after two
                SGD steps, with the same weights and the same draws.
 7. kernels-untiled — as 2, for the untiled routes: K6 / K7 in a serving
-               forward under ``Config(kpconv_tiled=False)``, K8 under
+               forward under ``Config(kpconv_tiled=False)`` (phase A and
+               phase B apart, as K2; nn equal on >= 1 - 1e-4 of the
+               queries; for K7 the count of queries whose nn differs
+               under the TPU kernel's s_all - s_coord rule), K8 under
                ``Config(kpconv_impl="reduce")``, K3's gathered entry (its
-               products apart, as K3's tiled entry) in the backward of one
-               untiled ``train_step`` (nn equal on >= 1 - 1e-4 of the
-               queries, as for K2).
+               products and its recompute of ``weighted`` apart) in the
+               backward of one untiled ``train_step``.
 8. path-untiled, path-reduce — 3 on those routes: K6 8 and K7 3 launches
                per pair and K2 none; K8 10 per pair.
 9. routes   — the same weights and pyramid through the tiled, untiled and
@@ -75,7 +77,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
-TF32_PASSES = 3  # the W products (K2, K3): error-compensated TF32, three products
+TF32_PASSES = 3  # the W products (K2, K3, K6, K7): error-compensated TF32, three products
 # torch.cuda._sleep spins for a number of SM cycles; the H100's top SM clock
 # is 1.98 GHz, so n cycles last at least n / 2e9 s.
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -689,16 +691,49 @@ def real_slots(gathered, channel_dim):
     return int((gathered != 0).any(channel_dim).sum())
 
 
+def tpu_merged_counts(nxc_t):
+    """K7's neighbor counts under the TPU kernel's rule
+    (pcrcg_tpu/ops/kpconv_fused.py:204-211): the channel rows in blocks of
+    8 + C (at most 128), each neighbor's sum over every row of a block,
+    minus rows 0-7 (coordinates and pad) in the first block; a neighbor
+    counts when that is > 0.  fp32, in torch's summation order."""
+    c8 = nxc_t.shape[1]
+    blk = c8 if c8 <= 128 else 128
+    hsum = None
+    for j, c0 in enumerate(range(0, c8, blk)):
+        part = nxc_t[:, c0:c0 + blk].sum(1)
+        if j == 0:
+            part = part - nxc_t[:, :8].sum(1)
+        hsum = part if hsum is None else hsum + part
+    return (hsum > 0.0).sum(0).clamp_min(1).to(nxc_t.dtype)
+
+
 def _gathered_conv_phase(key, calls, kernel, plain, shapes):
     """K6 / K7: each recorded call against its plain version (outputs after
     the ÷nn on the queries whose counts agree, which must be >= 1 - 1e-4 of
-    them), then kernel and plain version timed beside the bound."""
+    them), then timed: the whole kernel, its phase A (influences, reduce,
+    counts) and phase B (the 3xTF32 W product, held within 1e-5 of its
+    largest entry against float64) apart, ``torch.matmul`` in fp32 on phase
+    B's operands (a diagnostic), the plain version; bound with the W product
+    as three TF32 passes, the all-fp32 rule beside it.  K7 also counts the
+    queries whose count differs under the TPU kernel's s_all - s_coord
+    rule.  On a tree without ``kpconv_gathered_reduce`` (one C entry, the
+    SGEMM) only the kernel and its plain version are timed."""
     import torch
 
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    try:
+        from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_gathered_reduce
+        from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
+    except ImportError:
+        kpconv_gathered_reduce = None
+    torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmul in full fp32
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, a_flops=0.0, w_flops=0.0, nbytes=0.0,
+               a_ms=0.0, b_ms=0.0, matmul_ms=0.0, tpu_rule_diff=0, queries=0)
     seen = set()
+    c_skip = 8 if key == "K7" else 0
     for i, (args, kw) in enumerate(calls):
-        feats_t, kp, w = args[1], args[2], args[3]
+        geom, feats_t, kp, w = args[:4]
+        conf = args[4:]
         out, nn = kernel(*args, **kw)
         p_out, p_nn = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -707,27 +742,74 @@ def _gathered_conv_phase(key, calls, kernel, plain, shapes):
         err, rel = rel_err((out / nn[:, None])[same], (p_out / p_nn[:, None])[same])
         res["max_abs_err"] = max(res["max_abs_err"], err)
         check(rel <= 1e-4, f"{key} call {i}: max relative error {rel}")
+        rule = ""
+        if key == "K7":
+            diff = int((tpu_merged_counts(feats_t) != nn).sum())
+            res["tpu_rule_diff"] += diff
+            res["queries"] += nn.numel()
+            rule = f" TPU s_all-s_coord counts differing {diff}/{nn.numel()}"
+        del out, nn, p_out, p_nn, same
         k_count, c_w, d = w.shape
         h, _, n = feats_t.shape
         n_real = real_slots(feats_t, 1)
         # K7's merged gather carries 8 rows before the C features: only the
-        # 3 coordinate rows are needed, and W8's 8 zero rows add no work.
+        # 3 coordinate rows are read besides them, and W8's 8 zero rows are
+        # no work.
         c_in, rows = (c_w - 8, c_w - 5) if key == "K7" else (c_w, c_w)
-        flops = 2.0 * n_real * k_count * (c_in + 12) + 2.0 * n * k_count * c_in * d
-        nbytes = 4 * (args[0].numel() + h * rows * n + kp.numel() + k_count * c_in * d
+        a_flops = 2.0 * n_real * k_count * (c_in + 12)
+        w_flops = 2.0 * n * k_count * c_in * d
+        nbytes = 4 * (geom.numel() + h * rows * n + kp.numel() + k_count * c_in * d
                       + n * (d + 1))
         ms = time_ms(lambda: kernel(*args, **kw))
         plain_ms = time_ms(lambda: plain(*args, **kw), iters=3)
-        b_ms, b_by = bound(nbytes, flops)
-        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
+        split = ""
+        if kpconv_gathered_reduce is not None:
+            w_rows = w[:, c_skip:, :].reshape(k_count * c_in, d).contiguous()
+            weighted_t = kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf)[0]
+            b_out = tc_gemm(weighted_t, w_rows, trans_a=True)
+            b64 = fp64_err(b_out, weighted_t.T, w_rows)
+            check(b64 <= 1e-5, f"{key} call {i}: phase B vs float64 {b64}")
+            del b_out
+            a_ms = time_ms(lambda: kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf))
+            b_ms = time_ms(lambda: tc_gemm(weighted_t, w_rows, trans_a=True))
+            mm_ms = time_ms(lambda: torch.matmul(weighted_t.T, w_rows))
+            del weighted_t, w_rows
+            plan = plan_gemm(n, d, k_count * c_in,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+            split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, vs f64 "
+                     f"{b64:.1e}], torch.matmul fp32 {mm_ms:.4f})")
+            for k, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
+                res[k] += val
+        b3, b3_by = bound(nbytes, a_flops, TF32_PASSES * w_flops)
+        b32 = bound(nbytes, a_flops + w_flops)[0]
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes),
+                       ("a_flops", a_flops), ("w_flops", w_flops)):
             res[k] += val
         seen.add((c_in, d))
-        print(f"  {key} call {i}: N={n} H={h} (C,D)=({c_in},{d}) max|d|={err:.3e} rel={rel:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+        print(f"  {key} call {i}: N={n} H={h} (C,D)=({c_in},{d}) max|d|={err:.3e} rel={rel:.3e}"
+              f"{rule} kernel {ms:.4f} ms{split} plain {plain_ms:.4f} ms bound {b3:.4f} ms "
+              f"({b3_by}; all fp32: {b32:.4f})", flush=True)
     for need in shapes:
         check(need in seen, f"{key}: shape {need} not exercised")
-    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
+    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["a_flops"],
+                                             TF32_PASSES * res["w_flops"])
+    bound_fp32 = bound(res["nbytes"], res["a_flops"] + res["w_flops"])[0]
+    split = ""
+    if res["b_ms"] > 0:
+        rate = TF32_PASSES * res["w_flops"] / (res["b_ms"] * 1e-3) / 1e12
+        split = (f" = phase A {res['a_ms']:.4f} + phase B {res['b_ms']:.4f} ms ({rate:.1f} "
+                 f"TFLOP/s of TF32 product, {res['w_flops'] / 1e9:.1f} GFLOP x {TF32_PASSES}; "
+                 f"torch.matmul fp32 on phase B's operands, allow_tf32=False: "
+                 f"{res['matmul_ms']:.4f} ms)")
+    print(f"[kernels-untiled] {key} over {len(calls)} calls: {res['ms']:.4f} ms{split}; plain "
+          f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']}; W as "
+          f"3xTF32) [all fp32: {bound_fp32:.4f} ms]", flush=True)
+    if key == "K7":
+        print(f"[kernels-untiled] K7 counts under the TPU kernel's s_all - s_coord rule on the "
+              f"recorded full-width gathers (the encoder's features of the assets pair, seeded "
+              f"random weights): "
+              f"{res['tpu_rule_diff']} of {res['queries']} queries differ from the port's "
+              f"feature-only sum", flush=True)
     # No single PyTorch call computes the influences, the reduce and the W product.
     res["library_ms"] = None
     return res
@@ -809,10 +891,14 @@ def phase_k3g(calls):
     )
     from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
 
+    try:  # K6's phase A as its own launch, the recomputation of weighted
+        from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_gathered_reduce
+    except ImportError:
+        kpconv_gathered_reduce = None
     split = "trans_b" in inspect.signature(tc_gemm).parameters
     torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmuls in full fp32
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, prod_flops=0.0, nbytes=0.0,
-               dw_ms=0.0, gw_ms=0.0, matmul_ms=0.0, old_flops=0.0)
+               dw_ms=0.0, gw_ms=0.0, matmul_ms=0.0, old_flops=0.0, a_ms=0.0)
     for i, (args, kw) in enumerate(calls):
         rel, nx_t, g, kp, w = args[:5]
         dnx_t, dw = kpconv_fused_bwd(*args, **kw)
@@ -863,6 +949,12 @@ def phase_k3g(calls):
                 res[key] += val
             products = (f" (products dW {dw_ms:.4f} + gW {gw_ms:.4f}; torch.matmul fp32 "
                         f"{mm_ms:.4f}; vs f64 dW {dw64:.1e} gW {gw64:.1e})")
+        if kpconv_gathered_reduce is not None:
+            # K6's phase A on the same operands; the entry runs it without
+            # the neighbor count.
+            a_ms = time_ms(lambda: kpconv_gathered_reduce(rel, nx_t, 0, kp, *args[5:8]))
+            res["a_ms"] += a_ms
+            products += f" recompute (phase A, with the count) {a_ms:.4f}"
         del weighted_t
         b_ms, b_by = bound(nbytes, rest, TF32_PASSES * prod)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", rest),
@@ -879,8 +971,12 @@ def phase_k3g(calls):
         rate = TF32_PASSES * res["prod_flops"] / (products * 1e-3) / 1e12
         summary = (f" = products {products:.4f} (dW {res['dw_ms']:.4f} + gW {res['gw_ms']:.4f};"
                    f" {rate:.1f} TFLOP/s of TF32 product; torch.matmul fp32 on the same "
-                   f"operands, allow_tf32=False: {res['matmul_ms']:.4f}) + rest "
-                   f"{res['ms'] - products:.4f}")
+                   f"operands, allow_tf32=False: {res['matmul_ms']:.4f})")
+        if res["a_ms"] > 0:
+            summary += (f" + recompute of weighted (phase A, timed with the count it skips) "
+                        f"{res['a_ms']:.4f} + rest {res['ms'] - products - res['a_ms']:.4f}")
+        else:
+            summary += f" + rest {res['ms'] - products:.4f}"
     print(f"[kernels-untiled] K3 gathered over {len(calls)} calls: {res['ms']:.4f} ms{summary}; "
           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; products as 3xTF32); all-fp32 "
           f"rule {bound(res['nbytes'], res['old_flops'])[0]:.4f} ms", flush=True)

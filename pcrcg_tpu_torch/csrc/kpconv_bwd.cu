@@ -71,6 +71,33 @@ namespace {
 using pcrcg::kKMax;
 using pcrcg::tc::gemm_3xtf32;
 constexpr int kThreads = 256;
+constexpr int kTileQ = 32;  // queries a block of gathered_dnx_kernel, one per lane
+
+// Influences of the kernel points on every (neighbor, query) of the tile
+// starting at query n0 into wsm[(h * kKMax + k) * kTileQ + qi] (zero past
+// k_count and for queries past n).  One thread per (neighbor, query), the
+// query fastest.
+__device__ __forceinline__ void tile_influences(float* wsm, const float* __restrict__ rel,
+                                                int n, int h_count, int n0,
+                                                const float* __restrict__ kp, int k_count,
+                                                int influence, float extent, float gauss_denom,
+                                                int closest) {
+  for (int p = threadIdx.x; p < h_count * kTileQ; p += blockDim.x) {
+    const int qi = p % kTileQ;
+    const int h = p / kTileQ;
+    const int nq = n0 + qi;
+    float w[kKMax];
+#pragma unroll
+    for (int k = 0; k < kKMax; ++k) w[k] = 0.0f;
+    if (nq < n) {
+      const float* r = rel + ((size_t)nq * h_count + h) * 3;
+      pcrcg::point_influences(r[0], r[1], r[2], kp, k_count, influence, extent, gauss_denom,
+                              closest, w);
+    }
+#pragma unroll
+    for (int k = 0; k < kKMax; ++k) wsm[(h * kKMax + k) * kTileQ + qi] = w[k];
+  }
+}
 
 // ds[row(n, h), c] += sum_k w[n, h, k] gW[n, k, c] for the qpb queries at
 // blockIdx.x * qpb (shadow rows dropped).
@@ -145,15 +172,14 @@ __global__ void gathered_dnx_kernel(const float* __restrict__ rel, int n, int h_
                                     int c_in, const float* __restrict__ kp, int k_count,
                                     float extent, float gauss_denom, int influence, int closest,
                                     const float* __restrict__ gW_t, float* __restrict__ dnx_t) {
-  using pcrcg::kTileQ;
   extern __shared__ float wsm[];  // [H][kKMax][kTileQ]
   const int n0 = blockIdx.x * kTileQ;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int nq = n0 + lane;
-  pcrcg::tile_influences(wsm, rel, nullptr, nullptr, n, h_count, c_in, n0, kp, k_count,
-                         influence, extent, gauss_denom, closest);
+  tile_influences(wsm, rel, n, h_count, n0, kp, k_count, influence, extent, gauss_denom,
+                  closest);
   __syncthreads();
   if (nq >= n) return;
   for (int c = warp; c < c_in; c += nwarps) {
@@ -223,14 +249,16 @@ extern "C" int pcrcg_kpconv_bwd(const float* q, int nq, const float* s, int ns,
 // forward's gathered features), kp [k_count, 3], W [k_count * c_in, d],
 // g [n, d].  Outputs dW [k_count * c_in, d] and, when dnx_t is not null,
 // dnx_t [h_count, c_in, n]; weighted_t and (with dnx_t) gW_t, both
-// [k_count * c_in, n], are scratch, and the plans and workspace as in
-// pcrcg_kpconv_bwd.  Returns a CUDA error code after the launches on
+// [k_count * c_in, n], are scratch; a_split is the recompute's channel
+// split (ops/kpconv_fused.py::phase_a_split), and the plans and workspace
+// as in pcrcg_kpconv_bwd.  Returns a CUDA error code after the launches on
 // `stream`.
 extern "C" int pcrcg_kpconv_fused_bwd(const float* rel, const float* nx_t, int n, int h_count,
                                       int c_in, const float* kp, int k_count, const float* W,
                                       int d, const float* g, float extent, float gauss_denom,
-                                      int influence, int closest, int dw_splits, int dw_chunk,
-                                      int gw_splits, int gw_chunk, float* weighted_t,
+                                      int influence, int closest, int a_split, int dw_splits,
+                                      int dw_chunk, int gw_splits, int gw_chunk,
+                                      float* weighted_t,
                                       float* workspace, float* dW, float* gW_t, float* dnx_t,
                                       void* stream) {
   if (k_count > kKMax || k_count <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
@@ -238,21 +266,21 @@ extern "C" int pcrcg_kpconv_fused_bwd(const float* rel, const float* nx_t, int n
   const int kc = k_count * c_in;
   cudaError_t e = pcrcg::launch_gathered_reduce(rel, nullptr, nx_t, n, h_count, c_in, 0, kp,
                                                 k_count, extent, gauss_denom, influence,
-                                                closest, weighted_t, nullptr, st);
+                                                closest, a_split, weighted_t, nullptr,
+                                                nullptr, st);
   if (e != cudaSuccess) return (int)e;
   e = gemm_3xtf32<false, false>(kc, d, n, dw_splits, dw_chunk, weighted_t, g, dW, workspace,
                                 st);
   if (e != cudaSuccess || dnx_t == nullptr) return (int)e;
   e = gemm_3xtf32<false, true>(kc, n, d, gw_splits, gw_chunk, W, g, gW_t, workspace, st);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = pcrcg::gathered_smem_bytes(h_count);
+  const size_t smem = (size_t)h_count * kKMax * kTileQ * sizeof(float);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(gathered_dnx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  gathered_dnx_kernel<<<(n + pcrcg::kTileQ - 1) / pcrcg::kTileQ, pcrcg::kGatheredThreads, smem,
-                        st>>>(rel, n, h_count, c_in, kp, k_count, extent, gauss_denom,
-                              influence, closest, gW_t, dnx_t);
+  gathered_dnx_kernel<<<(n + kTileQ - 1) / kTileQ, kThreads, smem, st>>>(
+      rel, n, h_count, c_in, kp, k_count, extent, gauss_denom, influence, closest, gW_t, dnx_t);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,17 @@
 // Tensor-core fp32 GEMM for the KPConv W products: K2's W contraction
 // (phase B of pcrcg_tpu/ops/kpconv_tiled.py::_build_kernel, whose TPU body
-// contracts the reduced features with W in one bf16 MXU pass) and K3's two
-// backward products (pcrcg_tpu/ops/kpconv_fused.py::_bwd_kernel, dW and gW,
+// contracts the reduced features with W in one bf16 MXU pass), K6's and
+// K7's (phase B of pcrcg_tpu/ops/kpconv_fused.py::_fwd_kernel and
+// ::_merged_fwd_kernel, csrc/kpconv_fused.cu: out = weighted_t^T W, the
+// TRANS_A layout) and K3's two backward products
+// (pcrcg_tpu/ops/kpconv_fused.py::_bwd_kernel, dW and gW,
 // csrc/kpconv_bwd.cu):
 //
 //   C[M, N] = op(A)[M, K] x op(B)[K, N],   C row-major fp32
 //
 // op(A) is A [M, K] row-major or, with TRANS_A, the transpose of A stored
-// [K, M] (K3's dW = weighted^T g, weighted stored [Nq, K*C]); op(B) is
+// [K, M] (K3's dW = weighted^T g, weighted stored [Nq, K*C]; K6 / K7's
+// out = weighted_t^T W, weighted_t stored [K*C, N]); op(B) is
 // B [K, N] row-major or, with TRANS_B, the transpose of B stored [N, K]
 // (K3's gW = g W^T and W g^T).  Each operand is staged as it is stored,
 // 16-byte copies along its contiguous axis, and read transposed from
@@ -48,7 +52,9 @@
 //   copies (cp.async src-size 0) and masked at the store; when a stored
 //   operand's rows are not a multiple of 4 floats long (K*C = 15 at C = 1:
 //   60-byte rows of K2's A and of K3's block-0 `weighted`) the tiles take
-//   a 4-byte copy path instead of the 16-byte one.
+//   a 4-byte copy path instead of the 16-byte one.  A reduction shorter
+//   than a k-tile (K6's block 0: K*C = 15 rows of weighted_t) is one tile
+//   whose rows past K are zero-filled the same way.
 // Each warp splits the fragment elements it reads, so an element is split
 // once per warp that reads it.  Splitting each landed tile once instead,
 // into big and small planes in shared memory (a second barrier a k-tile,

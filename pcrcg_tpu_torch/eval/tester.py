@@ -13,7 +13,7 @@ import torch
 
 from pcrcg_tpu_torch import resolve_device
 from pcrcg_tpu_torch.config import Config
-from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
+from pcrcg_tpu_torch.models.kpfcnn import KPFCNN, refuse_image_feature
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
 from pcrcg_tpu_torch.registration.ransac import feature_correspondences, ransac_pose
 from pcrcg_tpu_torch.registration.sampling import weighted_sample_topk
@@ -42,7 +42,9 @@ def register_pair(
     model must already live there.  Randomness comes from ``generator`` (on
     that device), or from injected draws: ``uniforms`` (src, tgt) for the
     Gumbel sampling and ``picks`` for RANSAC.  Returns a dict with
-    transform [3,4], fitness, inlier_rmse and the model outputs."""
+    transform [3,4], fitness, inlier_rmse and the model outputs.  Raises on
+    an ``image_feature`` config (no color branch yet)."""
+    refuse_image_feature(cfg)
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev != dev and not (model_dev.type == dev.type == "cuda" and dev.index is None):

@@ -21,9 +21,13 @@ and the backward, with g = d loss / d out [N, D]:
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor, never falling back:
 
-* ``kpconv_fused`` — K6, ``csrc/kpconv_fused.cu``;
+* ``kpconv_fused`` — K6: phase A, ``kpconv_gathered_reduce``
+  (``csrc/kpconv_fused.cu``: influences, ``weighted_t`` [K·C, N] and nn in
+  one pass over nx_t), then the W product on the tensor cores
+  (``ops/tc_gemm.py::tc_gemm``, TRANS_A);
 * ``kpconv_fused_merged`` — K7, the same source: rel from rows 0-2 minus
-  q (a shadow gathers zeros, rel = −q), nn over the feature rows ≥ 8 only;
+  q (a shadow gathers zeros, rel = −q); phase A, the product and nn skip
+  the 8 coordinate/pad rows;
 * ``kpconv_fused_bwd`` — K3's gathered entry, ``csrc/kpconv_bwd.cu``:
   ``weighted`` recomputed from ``nx_t``, then dW, gW (both on the tensor
   cores, ``csrc/tc_gemm.cuh``) and dnx_t.
@@ -53,7 +57,30 @@ from pcrcg_tpu_torch.ops.kpconv_common import (
     compute_wgt,
     neighbor_rel,
 )
-from pcrcg_tpu_torch.ops.tc_gemm import plan_for, workspace
+from pcrcg_tpu_torch.ops.tc_gemm import H100_SMS, plan_for, sm_count, tc_gemm, workspace
+
+# Phase A's wide kernel (csrc/kpconv_gathered.cuh, kWideTileQ, kGroupC,
+# kWideBlocksPerSm there): 16 queries a block, two blocks an SM, channels
+# in groups of 64; C up to NARROW_C (kNarrowC) takes the narrow kernel.
+TILE_Q = 16
+GROUP_C = 64
+NARROW_C = 4
+BLOCKS_PER_SM = 2
+
+
+def phase_a_split(c_feat: int, n: int, n_sm: int = H100_SMS) -> int:
+    """The channel-group split (grid y) of phase A for C = ``c_feat``
+    feature rows of ``n`` queries on ``n_sm`` SMs: 1 unless the 16-query
+    blocks alone leave the card without BLOCKS_PER_SM blocks an SM; then
+    the groups are cut into that many more blocks, none empty.  A split
+    block adds its neighbor sums into a scratch plane, so more splits cost
+    H x N floats each."""
+    if c_feat <= NARROW_C:
+        return 1
+    groups = -(-c_feat // GROUP_C)
+    want = -(-BLOCKS_PER_SM * n_sm // -(-n // TILE_Q))
+    per = -(-groups // max(1, min(groups, want)))
+    return -(-groups // per)
 
 
 def kpconv_bwd_plain(q_pts, s_pts, lidx, tiles, kernel_points, weights, g, weighted,
@@ -82,37 +109,74 @@ def _merged_rel(q_pts, nxc_t):
     return (nxc_t[:, :3, :] - q_pts.T[None]).permute(2, 0, 1)
 
 
+def kpconv_gathered_reduce_plain(geom, nx_t, c_skip: int, kernel_points, kp_extent: float,
+                                 influence: str = "linear", aggregation: str = "sum"):
+    """Plain PyTorch version of phase A -> (weighted_t [K·C, N], nn [N]) for
+    the C = nx_t.shape[1] − c_skip feature rows; ``geom`` is rel [N, H, 3]
+    (c_skip 0) or, for the merged gather, q_pts [N, 3] (rel from rows 0-2)."""
+    rel = _merged_rel(geom, nx_t) if geom.dim() == 2 else geom
+    feats = nx_t[:, c_skip:, :]
+    _, weighted = _gathered_weighted(rel, feats, kernel_points, kp_extent, influence,
+                                     aggregation)
+    nn = (feats.sum(1) > 0.0).sum(0).clamp_min(1).to(weighted.dtype)
+    return weighted.T, nn
+
+
 def kpconv_fused_plain(rel, nx_t, kernel_points, weights, kp_extent: float,
                        influence: str = "linear", aggregation: str = "sum"):
-    """Plain PyTorch version of K6 -> (out [N, D] before the ÷nn, nn [N])."""
+    """Plain PyTorch version of K6 -> (out [N, D] before the ÷nn, nn [N]):
+    phase A, then the W product."""
     k_count, c_in, d = weights.shape
-    _, weighted = _gathered_weighted(rel, nx_t, kernel_points, kp_extent, influence,
-                                     aggregation)
-    out = weighted @ weights.reshape(k_count * c_in, d)
-    nn = (nx_t.sum(1) > 0.0).sum(0).clamp_min(1).to(out.dtype)
-    return out, nn
+    weighted_t, nn = kpconv_gathered_reduce_plain(rel, nx_t, 0, kernel_points, kp_extent,
+                                                  influence, aggregation)
+    return weighted_t.T @ weights.reshape(k_count * c_in, d), nn
 
 
-def _launch_fused(fn_name, geom, nx_t, kernel_points, weights, kp_extent, influence,
-                  aggregation, kernel_id):
-    """K6 / K7: one launch of ``fn_name`` over nx_t [H, C, N] with its
-    geometry ``geom`` (rel or q_pts) -> (out [N, D], nn [N])."""
-    dev = nx_t.device
-    h_count, c_in, n = nx_t.shape
-    k_count, _, d = weights.shape
+def kpconv_gathered_reduce(geom, nx_t, c_skip: int, kernel_points, kp_extent: float,
+                           influence: str = "linear", aggregation: str = "sum"):
+    """Phase A of K6 (``geom`` rel [N, H, 3], c_skip 0) and of K7 (``geom``
+    q_pts [N, 3], c_skip 8) -> (weighted_t [K·C, N] f32, nn [N] f32) over the
+    C = nx_t.shape[1] − c_skip feature rows; bit for bit the same on every
+    run.  The CUDA launch of ``kpconv_fused``'s and ``kpconv_fused_merged``'s
+    first half (``csrc/kpconv_fused.cu``); the launch count is theirs."""
+    if nx_t.device.type == "cpu":
+        return kpconv_gathered_reduce_plain(geom, nx_t, c_skip, kernel_points, kp_extent,
+                                            influence, aggregation)
+    merged = geom.dim() == 2
+    dev = check_gathered(nx_t, kernel_points, influence, aggregation,
+                         **({"q_pts": geom} if merged else {"rel": geom}))
+    h_count, c_total, n = nx_t.shape
+    c_feat = c_total - c_skip
+    if c_feat <= 0 or c_skip < (3 if merged else 0):
+        raise ValueError(f"nx_t {tuple(nx_t.shape)} with c_skip {c_skip}: no feature rows, "
+                         "or the coordinates are not skipped")
+    k_count = kernel_points.shape[0]
     f32 = torch.float32
-    kernels.require(weights, "weights", f32, dev, (k_count, c_in, d))
-    weighted_t = torch.empty(k_count * c_in, n, device=dev, dtype=f32)
-    out = torch.empty(n, d, device=dev, dtype=f32)
+    split = phase_a_split(c_feat, n, sm_count(dev.index))
+    nn_part = torch.empty(split * h_count * n, device=dev, dtype=f32) if split > 1 else None
+    weighted_t = torch.empty(k_count * c_feat, n, device=dev, dtype=f32)
     nn = torch.empty(n, device=dev, dtype=f32)
     sigma = kp_extent * 0.3
-    err = kernels.bind("kpconv_fused", fn_name, "ppiiipipiffiipppp")(
-        geom.data_ptr(), nx_t.data_ptr(), n, h_count, c_in, kernel_points.data_ptr(),
-        k_count, weights.data_ptr(), d, float(kp_extent), float(2.0 * sigma**2 + 1e-9),
-        INFLUENCE[influence], int(aggregation == "closest"), weighted_t.data_ptr(),
-        out.data_ptr(), nn.data_ptr(), kernels.stream_handle(dev),
+    err = kernels.bind("kpconv_fused", "pcrcg_kpconv_gathered_reduce", "ppp" "iiii" "pi" "ffii"
+                       "ipppp")(
+        None if merged else geom.data_ptr(), geom.data_ptr() if merged else None,
+        nx_t.data_ptr(), n, h_count, c_total, c_skip, kernel_points.data_ptr(), k_count,
+        float(kp_extent), float(2.0 * sigma**2 + 1e-9), INFLUENCE[influence],
+        int(aggregation == "closest"), split, None if nn_part is None else nn_part.data_ptr(),
+        weighted_t.data_ptr(), nn.data_ptr(), kernels.stream_handle(dev),
     )
-    kernels.check_launch(err, fn_name)
+    kernels.check_launch(err, "kpconv_fused phase A")
+    return weighted_t, nn
+
+
+def _launch_fused(geom, nx_t, c_skip, kernel_points, w_rows, kp_extent, influence,
+                  aggregation, kernel_id):
+    """K6 / K7 on the card: phase A, then out [N, D] = weighted_tᵀ @ w_rows
+    (W's C feature rows [K·C, D]) on the tensor cores (``tc_gemm``'s TRANS_A
+    layout, ``plan_for``'s split-K plan) -> (out, nn)."""
+    weighted_t, nn = kpconv_gathered_reduce(geom, nx_t, c_skip, kernel_points, kp_extent,
+                                            influence, aggregation)
+    out = tc_gemm(weighted_t, w_rows, trans_a=True)
     kernels.count_launch(kernel_id)
     return out, nn
 
@@ -125,9 +189,10 @@ def kpconv_fused(rel, nx_t, kernel_points, weights, kp_extent: float,
     if nx_t.device.type == "cpu":
         return kpconv_fused_plain(rel, nx_t, kernel_points, weights, kp_extent, influence,
                                   aggregation)
-    check_gathered(nx_t, kernel_points, influence, aggregation, rel=rel)
-    return _launch_fused("pcrcg_kpconv_fused", rel, nx_t, kernel_points, weights, kp_extent,
-                         influence, aggregation, "K6")
+    kernels.require(weights, "weights", torch.float32, nx_t.device,
+                    (kernel_points.shape[0], nx_t.shape[1], weights.shape[-1]))
+    return _launch_fused(rel, nx_t, 0, kernel_points, weights.reshape(-1, weights.shape[-1]),
+                         kp_extent, influence, aggregation, "K6")
 
 
 def kpconv_fused_merged_plain(q_pts, nxc_t, kernel_points, weights8, kp_extent: float,
@@ -146,15 +211,19 @@ def kpconv_fused_merged(q_pts, nxc_t, kernel_points, weights8, kp_extent: float,
                         influence: str = "linear", aggregation: str = "sum"):
     """K7: q_pts [N, 3], nxc_t [H, 8 + C, N] the merged gather [coords | 0 |
     features] (shadow rows all zero), weights8 [K, 8 + C, D] with its first
-    8 channel rows zero -> (out [N, D] before the ÷nn, nn [N] f32)."""
+    8 channel rows zero -> (out [N, D] before the ÷nn, nn [N] f32).  On the
+    card the kernel reduces and contracts the C feature rows only (K·C, not
+    K·(8 + C)): the same output, since W8's first 8 rows are zero."""
     if nxc_t.device.type == "cpu":
         return kpconv_fused_merged_plain(q_pts, nxc_t, kernel_points, weights8, kp_extent,
                                          influence, aggregation)
-    check_gathered(nxc_t, kernel_points, influence, aggregation, q_pts=q_pts)
-    if nxc_t.shape[1] < 8:
-        raise ValueError(f"nxc_t {tuple(nxc_t.shape)} has no coordinate rows")
-    return _launch_fused("pcrcg_kpconv_fused_merged", q_pts, nxc_t, kernel_points, weights8,
-                         kp_extent, influence, aggregation, "K7")
+    kernels.require(weights8, "weights8", torch.float32, nxc_t.device,
+                    (kernel_points.shape[0], nxc_t.shape[1], weights8.shape[-1]))
+    # The kernel skips the 8 coordinate/pad rows, so it takes W8's feature
+    # rows (its first 8 rows are zero by contract).
+    w_rows = weights8[:, 8:, :].reshape(-1, weights8.shape[-1]).contiguous()
+    return _launch_fused(q_pts, nxc_t, 8, kernel_points, w_rows, kp_extent, influence,
+                         aggregation, "K7")
 
 
 def kpconv_fused_bwd_plain(rel, nx_t, g, kernel_points, weights, kp_extent: float,
@@ -199,10 +268,11 @@ def kpconv_fused_bwd(rel, nx_t, g, kernel_points, weights, kp_extent: float,
     sigma = kp_extent * 0.3
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = kernels.bind("kpconv_bwd", "pcrcg_kpconv_fused_bwd",
-                       "ppiiipipip" "ffii" "iiii" "pppppp")(
+                       "ppiiipipip" "ffii" "iiiii" "pppppp")(
         rel.data_ptr(), nx_t.data_ptr(), n, h_count, c_in, kernel_points.data_ptr(), k_count,
         weights.data_ptr(), d, g.data_ptr(), float(kp_extent), float(2.0 * sigma**2 + 1e-9),
-        INFLUENCE[influence], int(aggregation == "closest"), *dw_plan, *gw_plan,
+        INFLUENCE[influence], int(aggregation == "closest"),
+        phase_a_split(c_in, n, sm_count(dev.index)), *dw_plan, *gw_plan,
         weighted_t.data_ptr(), ptr(ws), dw.data_ptr(), ptr(gw_t), ptr(dnx_t),
         kernels.stream_handle(dev),
     )

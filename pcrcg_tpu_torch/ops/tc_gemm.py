@@ -1,8 +1,10 @@
 """The KPConv W products on the tensor cores, in error-compensated TF32
 (``csrc/tc_gemm.cuh``): K2's phase B, ``out = weighted @ W`` (entry
-``pcrcg_tc_gemm`` of the K2 library ``csrc/kpconv_tiled.cu``), and K3's
-dW and gW, which ``csrc/kpconv_bwd.cu`` runs in the transposed layouts
-(``trans_a``: A stored [K, M]; ``trans_b``: B stored [N, K]).
+``pcrcg_tc_gemm`` of the K2 library ``csrc/kpconv_tiled.cu``), K6's and
+K7's phase B, ``out = weighted_tᵀ @ W`` (``csrc/kpconv_fused.cu``, the
+``trans_a`` layout), and K3's dW and gW, which ``csrc/kpconv_bwd.cu`` runs
+in the transposed layouts (``trans_a``: A stored [K, M]; ``trans_b``: B
+stored [N, K]).
 
 ``plan_gemm`` is the host-side planner: a pure function of the shape and
 the device's SM count that picks the split-K factor for the kernel's
@@ -70,13 +72,13 @@ def plan_gemm(m: int, n: int, k: int, n_sm: int = H100_SMS) -> GemmPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plan_for(m: int, n: int, k: int, device: torch.device) -> GemmPlan:
     """``plan_gemm`` for the SMs of ``device``."""
-    return plan_gemm(m, n, k, _sm_count(device.index))
+    return plan_gemm(m, n, k, sm_count(device.index))
 
 
 def workspace(device: torch.device, *shaped_plans) -> Optional[torch.Tensor]:

@@ -23,6 +23,7 @@ from pcrcg_tpu_torch.data.pair import PairBatch
 from pcrcg_tpu_torch.geom.so3 import quaternion_from_matrix
 from pcrcg_tpu_torch.losses import LossInputs, metric_loss
 from pcrcg_tpu_torch.models.kpconv import resolve_kpconv_impl
+from pcrcg_tpu_torch.models.kpfcnn import refuse_image_feature
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
 from pcrcg_tpu_torch.train.state import TrainState
 
@@ -30,7 +31,9 @@ from pcrcg_tpu_torch.train.state import TrainState
 def forward_pair(model, cfg: Config, points, masks, features, with_overflow: bool = False):
     """One pair: points [2, N, 3], masks [2, N], features [2, N, Cin] ->
     (outputs, pyramid), plus the per-level voxel-budget overflow [L-1, 2]
-    with ``with_overflow``."""
+    with ``with_overflow``.  Raises on an ``image_feature`` config (no
+    color branch yet)."""
+    refuse_image_feature(cfg)
     built = build_pyramid_cfg(cfg, points, masks, with_overflow=with_overflow)
     pyramid, overflow = built if with_overflow else (built, None)
     out = model(pyramid, features)

@@ -17,6 +17,8 @@ from pcrcg_tpu_torch.ops.kpconv_fused import (
     kpconv_fused_merged,
     kpconv_fused_merged_plain,
     kpconv_fused_plain,
+    kpconv_gathered_reduce,
+    kpconv_gathered_reduce_plain,
 )
 from pcrcg_tpu_torch.ops.kpconv_pallas import (
     kpconv_weighted_reduce,
@@ -235,6 +237,9 @@ LAYOUT_CASES = [
     ("tb", 960, 5000, 64),  # gathered gW_t, ragged N
     ("nn", 960, 64, 53248),  # gathered dW at level 0
     ("tb", 333, 18, 21),  # ragged in every dimension (the 4-byte path)
+    ("ta", 53248, 128, 15),  # K6's block 0: K·C = 15, less than one k-tile
+    ("ta", 300, 128, 15),  # the same, ragged N (the 4-byte path)
+    ("ta", 1536, 512, 7680),  # K6 at level 3: the longest W reduction
 ]
 
 
@@ -271,6 +276,27 @@ def test_k3_dw_is_bit_identical_run_to_run(cuda):
     g = g[:rel.shape[0]].contiguous()
     args = (rel, nx_t, g, kp, w, 0.06)
     assert torch.equal(kpconv_fused_bwd(*args)[1], kpconv_fused_bwd(*args)[1])
+
+
+@pytest.mark.parametrize("c,merged", [(1, False), (64, False), (64, True)])
+def test_k3_gathered_dw_is_bit_identical_with_the_new_phase_a(cuda, c, merged):
+    """K3's gathered entry recomputes `weighted` with K6's phase A: at C = 1
+    (256 queries a block), C = 64 (two channel blocks) and over the merged
+    gather (rel from its coordinates, all 8 + C rows, as the merged
+    backward runs it), dW is bit for bit the same on two runs."""
+    from pcrcg_tpu_torch.ops.kpconv_fused import _merged_rel
+
+    rel, nx_t, nxc_t, q, kp, w, w8 = _gathered_inputs(cuda, c, 32, seed=15)
+    if merged:
+        rel, nx_t, w = _merged_rel(q, nxc_t).contiguous(), nxc_t, w8
+    g = torch.randn(rel.shape[0], 32, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    args = (rel, nx_t, g, kp, w, 0.06)
+    first, second = kpconv_fused_bwd(*args)[1], kpconv_fused_bwd(*args)[1]
+    want = kpconv_fused_bwd_plain(*args)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _rel_err(first, want) <= 1e-4
 
 
 def test_tc_gemm_rejects_bad_arguments(cuda):
@@ -381,13 +407,17 @@ def test_wrappers_reject_bad_arguments(cuda):
                                                                 device=cuda))
 
 
-def _gathered_inputs(cuda, c, d, seed):
+def _gathered_inputs(cuda, c, d, seed, apart=False):
     """The inputs of the gathered-feature kernels on the card: rel [Nq, H, 3]
     (shadow at PAD_COORD − q), nx_t [H, C, Nq], the merged gather nxc_t
-    [H, 8 + C, Nq], q, kernel points, W and W8 = [0₈ | W]."""
+    [H, 8 + C, Nq], q, kernel points, W and W8 = [0₈ | W].  ``apart``: each
+    support's features shifted so their sum sits at least 0.5 from zero
+    (neighbor counts then agree in any summation order)."""
     from pcrcg_tpu_torch.ops.masked import PAD_COORD, pad_gather
 
     q, sup, feats, _, _, kp, w, gidx = _conv_inputs(cuda, c, d, seed=seed)
+    if apart:
+        feats = feats + torch.sign(feats.sum(1, keepdim=True)) * 0.5 / c
     rel = (pad_gather(sup, gidx, PAD_COORD) - q[:, None, :]).contiguous()
     nx_t = pad_gather(feats, gidx, 0.0).permute(1, 2, 0).contiguous()
     base = torch.cat([sup, sup.new_zeros(sup.shape[0], 5), feats], 1)
@@ -405,6 +435,37 @@ def _same_conv(got, want):
     got, want = (got_out / got_nn[:, None])[same], (want_out / want_nn[:, None])[same]
     # fp32 sums over H neighbors and K·C products in another order.
     assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1.0)
+
+
+# Phase A of K6 / K7 on each of its paths: C = 1 (the narrow kernel, four
+# lanes a query: block 0's ones column), 6 and 12 (one 64-channel group,
+# part empty), 64 (one full group), 257 (five groups, the last ragged, split
+# over 5 blocks of the 32 query blocks, whose neighbor sums are added by
+# count_neighbors_kernel); N = 500 queries (a ragged last block).  Layouts:
+# K6's (rel, c_skip 0), K7's (rel from the merged gather's coordinate rows,
+# c_skip 8) and K3's recompute over the merged gather (rel, c_skip 0).
+@pytest.mark.parametrize("c", [1, 6, 12, 64, 257])
+@pytest.mark.parametrize("layout", ["k6", "k7", "merged_rel"])
+def test_k6_k7_phase_a_matches_plain(cuda, c, layout):
+    from pcrcg_tpu_torch.ops.kpconv_fused import _merged_rel
+
+    rel, nx_t, nxc_t, q, kp, _, _ = _gathered_inputs(cuda, c, 4, seed=14, apart=True)
+    geom, feats, c_skip = {
+        "k6": (rel, nx_t, 0),
+        "k7": (q, nxc_t, 8),
+        "merged_rel": (_merged_rel(q, nxc_t).contiguous(), nxc_t, 0),
+    }[layout]
+    for influence, aggregation in (("linear", "sum"), ("gaussian", "closest")):
+        args = (geom, feats, c_skip, kp, 0.06, influence, aggregation)
+        got_w, got_nn = kpconv_gathered_reduce(*args)
+        again_w, again_nn = kpconv_gathered_reduce(*args)
+        want_w, want_nn = kpconv_gathered_reduce_plain(*args)
+        torch.cuda.synchronize()
+        assert got_w.shape == (15 * (feats.shape[1] - c_skip), feats.shape[2])
+        assert torch.equal(got_nn, want_nn)  # the sums sit far from zero
+        # fp32 sums over H neighbors in another order than einsum's.
+        assert _rel_err(got_w, want_w) <= 1e-5
+        assert torch.equal(got_w, again_w) and torch.equal(got_nn, again_nn)
 
 
 @pytest.mark.parametrize("influence,aggregation,c,d", CASES)

@@ -31,7 +31,11 @@ from pcrcg_tpu_torch.ops.kpconv_fused import (
     kpconv_fused,
     kpconv_fused_bwd,
     kpconv_fused_merged,
+    kpconv_fused_merged_plain,
+    kpconv_fused_plain,
     kpconv_gathered_fused,
+    kpconv_gathered_reduce,
+    phase_a_split,
 )
 from pcrcg_tpu_torch.ops.kpconv_pallas import kpconv_weighted_reduce
 from pcrcg_tpu_torch.ops.kpconv_tiled import max_pool_tiled
@@ -130,6 +134,73 @@ def test_k7_plain_matches_pallas(influence, aggregation, c, d):
                                               influence, aggregation, interpret=True)
     np.testing.assert_array_equal(nn.numpy(), np.asarray(want_nn))
     _close(out.numpy(), want_out, "out")
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", [CASES[0], CASES[3], CASES[4], CASES[5]])
+def test_k7_wrapper_takes_w8_and_skips_the_coordinate_rows(influence, aggregation, c, d):
+    """K7's wrapper keeps its W8 [K, 8 + C, D] contract: on the CPU it gives
+    the merged plain version's output (all 8 + C rows against W8, as the
+    TPU kernel contracts them), and that equals what the card computes --
+    phase A over the C feature rows only (c_skip = 8), then their product
+    with W8's feature rows -- because W8's first 8 rows are zero."""
+    s = _setup(4, c=c, d=d)
+    nxc_t = T(_merged_gather(s))
+    w8 = T(np.concatenate([np.zeros((s["w"].shape[0], 8, d), np.float32), s["w"]], 1))
+    args = (T(s["q"]), nxc_t, T(s["kp"]), w8, EXTENT, influence, aggregation)
+    out, nn = kpconv_fused_merged(*args)
+    want_out, want_nn = kpconv_fused_merged_plain(*args)
+    assert torch.equal(out, want_out) and torch.equal(nn, want_nn)
+    weighted_t, skip_nn = kpconv_gathered_reduce(T(s["q"]), nxc_t, 8, T(s["kp"]), EXTENT,
+                                                 influence, aggregation)
+    assert weighted_t.shape == (s["kp"].shape[0] * c, s["q"].shape[0])
+    assert torch.equal(skip_nn, nn)
+    skip_out = weighted_t.T @ w8[:, 8:, :].reshape(-1, d)
+    _close(skip_out.numpy(), out.numpy(), "feature rows only vs all 8 + C rows")
+
+
+def test_k6_phase_a_is_k7_phase_a_on_the_feature_rows():
+    """Phase A of K7 (rel from the merged gather's coordinate rows, c_skip 8)
+    gives K6's phase A over the feature rows with the gathered rel: the
+    shadow slots differ only in their rel (−q against PAD_COORD − q), and
+    their features are zero."""
+    s = _setup(5, c=20, d=8)
+    rel, nx_t = _gathered(s)
+    nxc_t = _merged_gather(s)
+    k6 = kpconv_gathered_reduce(T(rel), T(nx_t), 0, T(s["kp"]), EXTENT)
+    k7 = kpconv_gathered_reduce(T(s["q"]), T(nxc_t), 8, T(s["kp"]), EXTENT)
+    assert torch.equal(k6[1], k7[1])
+    _close(k7[0].numpy(), k6[0].numpy(), "weighted_t")
+    out, nn = kpconv_fused_plain(T(rel), T(nx_t), T(s["kp"]), T(s["w"]), EXTENT)
+    assert torch.equal(nn, k6[1])
+    assert torch.equal(out, k6[0].T @ T(s["w"]).reshape(-1, 8))
+
+
+# Phase A's calls in one untiled forward and step at the default Config():
+# (C feature rows, N) of K6, K7 (feature rows only) and K3's recompute
+# (K7's calls over all 8 + C rows).
+PHASE_A_CALLS = sorted({(1, 53248), (64, 53248), (64, 18432), (128, 18432), (128, 5120),
+                        (256, 5120), (256, 1536), (512, 1536), (72, 18432), (136, 5120),
+                        (264, 1536)})
+
+
+@pytest.mark.parametrize("c_feat,n", PHASE_A_CALLS)
+def test_phase_a_split_fills_the_card_with_no_empty_block(c_feat, n):
+    """The channel-group split is a pure function of the shape, covers the
+    groups in whole blocks with none empty, and splits only where the
+    16-query blocks alone leave the 132 SMs short of two blocks each."""
+    split = phase_a_split(c_feat, n, 132)
+    assert split == phase_a_split(c_feat, n, 132) >= 1
+    if c_feat <= 4:
+        assert split == 1
+        return
+    groups = -(-c_feat // 64)
+    per = -(-groups // split)
+    assert split <= groups and (split - 1) * per < groups <= split * per
+    blocks = -(-n // 16)
+    if split > 1:
+        assert blocks * (split - 1) < 2 * 132
+    else:
+        assert blocks >= 2 * 132 or groups == 1
 
 
 @pytest.mark.parametrize("influence,c", [("linear", 12), ("gaussian", 12), ("constant", 8),

@@ -167,6 +167,49 @@ def test_plan_splits_only_while_the_tiles_do_not_fill_the_card(m, k, n):
         assert tiles >= WAVES * 132 or k_tiles < 2 * MIN_K_TILES
 
 
+# The W products of one untiled forward at the default Config(): K6's
+# and K7's out [N, D] = weighted_tᵀ x W, weighted_t stored [K·C, N] (the
+# TRANS_A layout), as (M = N, K = 15 C, N = D); K7 reduces over its C
+# feature rows only.
+K6_K7_GEMMS = {
+    "K6 block 0 (ones column)": (53248, 15, 128), "K6 L0 resnetb": (53248, 960, 64),
+    "K7 L0 strided": (18432, 960, 64), "K6 L1 a": (18432, 1920, 128),
+    "K6 L1 b": (18432, 1920, 128), "K7 L1 strided": (5120, 1920, 128),
+    "K6 L2 a": (5120, 3840, 256), "K6 L2 b": (5120, 3840, 256),
+    "K7 L2 strided": (1536, 3840, 256), "K6 L3 a": (1536, 7680, 512),
+    "K6 L3 b": (1536, 7680, 512),
+}
+
+
+@pytest.mark.parametrize("m,k,n", list(K6_K7_GEMMS.values()), ids=list(K6_K7_GEMMS))
+def test_plan_at_the_k6_k7_trans_a_shapes(m, k, n):
+    """At each of the 11 products: the blocks fill the 132 SMs, the partials
+    cover the reduction in a fixed order with none empty, and the workspace
+    stays within MAX_SPLITS outputs (48 MiB at most)."""
+    plan = plan_gemm(m, n, k, n_sm=132)
+    assert plan == plan_gemm(m, n, k, n_sm=132)
+    assert plan.blocks(m, n) >= 132
+    ranges = plan.k_ranges(k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(hi == nxt for (_, hi), (nxt, _) in zip(ranges, ranges[1:]))
+    floats = plan.splits * m * n if plan.splits > 1 else 0
+    assert floats <= MAX_SPLITS * m * n and floats * 4 <= 48 * 2**20
+    if k < BK:  # block 0: one k-tile, its rows past K zero-filled
+        assert plan == GemmPlan(1, BK)
+
+
+def test_tc_gemm_trans_a_on_the_cpu_at_a_short_reduction():
+    """K6's block 0: weighted_t [15, N] (K·C = 15, shorter than one k-tile)
+    -> op(a) = weighted_tᵀ; the CPU branch is a.T @ b."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.normal(size=(K_POINTS, 300)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(K_POINTS, 128)).astype(np.float32))
+    got = tc_gemm(a, b, plan_gemm(300, 128, K_POINTS), trans_a=True)
+    assert got.shape == (300, 128)
+    assert torch.equal(got, a.T @ b)
+
+
 def test_plan_rejects_an_empty_product():
     with pytest.raises(ValueError):
         plan_gemm(0, 64, 64)
