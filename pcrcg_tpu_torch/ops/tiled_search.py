@@ -4,11 +4,11 @@ Counterpart of ``pcrcg_tpu/ops/tiled_search.py``.  Queries and supports are
 Z-order sorted, so 128-query groups and ``tile``-row support tiles are
 spatially compact.  Each group keeps its ``m_tiles`` nearest tiles (box
 distance first, box-center distance as tie-break), and the exact search
-runs against just those candidates: the distances come from K1
-(``ops/search_kernel.py``), the top-k, radius cutoff and local -> global
-mapping follow here.  When the tile grid is too small to prune
-(``n_tiles <= m_tiles``) the dense search runs instead and the local
-metadata lists every tile.
+runs against just those candidates: one K1 launch
+(``ops/search_kernel.py``) takes the distances, the exact top-k, the radius
+cutoff and the local -> global mapping, and writes no distance matrix.
+When the tile grid is too small to prune (``n_tiles <= m_tiles``) the
+dense search runs instead and the local metadata lists every tile.
 
 There is one route: every tiled search goes through
 ``radius_search_tiled_batch`` (the per-cloud ``radius_search_tiled`` is a
@@ -19,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from pcrcg_tpu_torch.ops.masked import PAD_COORD
-from pcrcg_tpu_torch.ops.neighbors import _smallest_k, min_dist_sq, radius_search, radius_sq
-from pcrcg_tpu_torch.ops.search_kernel import pack_supports_tile_major, tiled_candidate_distances
+from pcrcg_tpu_torch.ops.neighbors import min_dist_sq, radius_search, radius_sq
+from pcrcg_tpu_torch.ops.search_kernel import (
+    pack_supports_tile_major, tiled_min_dist_sq, tiled_search,
+)
 
 _Q_TILE = 128  # queries per pruning group
 
@@ -119,23 +121,12 @@ def radius_search_tiled_batch(
     supa = pack_supports_tile_major(
         sup.reshape(b * n_tiles * tile, 3), smask.reshape(-1), tile
     )  # [B·n_tiles, 4, tile]
-    d2 = tiled_candidate_distances(
+    idx, lidx = tiled_search(
         qpad.reshape(b * nq_pad, 3).contiguous(), supa,
-        (sel + boff).reshape(b * g_count, m_tiles).contiguous(),
-    )  # [B·Nq_pad, M·tile]
-
-    d2k, lidx = _smallest_k(d2, k)  # [B·Nq_pad, k]
-    d2k = d2k.reshape(b, nq_pad, k)
-    lidx = lidx.reshape(b, g_count, _Q_TILE * k)
-    tile_of = torch.gather(sel.long(), 2, lidx // tile)  # per-cloud tile id
-    gidx = (tile_of * tile + lidx % tile).reshape(b, nq_pad, k)
-    lidx = lidx.reshape(b, nq_pad, k)
-
-    in_r = d2k <= radius_sq(radius)
-    idx = torch.where(in_r, gidx, ns)[:, :nq]
+        (sel + boff).reshape(b * g_count, m_tiles).contiguous(), k, radius_sq(radius), nq, ns, b,
+    )
     if not return_local:
         return idx
-    lidx = torch.where(in_r, lidx, m_tiles * tile).to(torch.int32)
     return idx, lidx, sel
 
 
@@ -172,7 +163,5 @@ def min_dist_sq_tiled(queries, supports, support_mask, tile: int = 128,
     sel = _group_tile_selection(
         qpad.reshape(1, g_count, _Q_TILE, 3), tmin, tmax, tctr, tile_valid, m_tiles
     )[0]
-    d2 = tiled_candidate_distances(
-        qpad.contiguous(), pack_supports_tile_major(sup, smask, tile), sel.contiguous()
-    )
-    return d2.amin(-1)[:nq]
+    return tiled_min_dist_sq(qpad.contiguous(), pack_supports_tile_major(sup, smask, tile),
+                             sel.contiguous(), nq)

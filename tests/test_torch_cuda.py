@@ -37,9 +37,10 @@ from pcrcg_tpu_torch.ops.kpconv_tiled import (
 )
 from pcrcg_tpu_torch.ops.tc_gemm import BK, GemmPlan, plan_gemm, tc_gemm
 from pcrcg_tpu_torch.ops.search_kernel import (
-    pack_supports_tile_major,
-    tiled_candidate_distances,
-    tiled_candidate_distances_plain,
+    tiled_min_dist_sq,
+    tiled_min_dist_sq_plain,
+    tiled_search,
+    tiled_search_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -59,24 +60,96 @@ def _cloud(rng, n, scale=3.0):
     return morton_sort(pts, torch.ones(n, dtype=torch.bool))[:2]
 
 
-@pytest.mark.parametrize("tile,m_tiles,nq", [(128, 12, 300), (32, 5, 256), (128, 40, 128)])
-def test_k1_kernel_matches_plain(cuda, tile, m_tiles, nq):
-    rng = np.random.default_rng(0)
-    ns = tile * max(m_tiles + 2, 8)
-    sup, mask = _cloud(rng, ns)
-    mask[::29] = False
-    q = sup[torch.from_numpy(rng.permutation(ns)[:nq])]
-    g = -(-nq // 128)
-    sel = torch.from_numpy(rng.integers(0, ns // tile, size=(g, m_tiles)).astype(np.int32))
-    supa = pack_supports_tile_major(sup, mask, tile)
-    want = tiled_candidate_distances_plain(q.to(cuda), supa.to(cuda), sel.to(cuda))
-    got = tiled_candidate_distances(q.to(cuda), supa.to(cuda), sel.to(cuda))
+def _search_clouds(case, ns, scale=3.0):
+    """Two Z-ordered clouds, masks and 200 queries each (torch, CPU) for the
+    tiled search: "ties" / "nearest" hold every point twice (exact ties),
+    "dense" puts 300 points in a 3 cm ball (more candidates within the
+    radius than the kernel's 128-entry survivor buffer), "pads" masks
+    scattered supports; the queries are support points with a little noise
+    ("ties": exactly on them), 200 a cloud (pad-query rows)."""
+    from pcrcg_tpu_torch.ops.subsample import morton_sort
+
+    clouds, masks, queries = [], [], []
+    for seed in (11, 12):
+        r = np.random.default_rng(seed)
+        pts = r.uniform(0, scale, size=(ns, 3)).astype(np.float32)
+        if case in ("ties", "nearest"):
+            pts[1::2] = pts[::2]
+        elif case == "dense":
+            pts[:300] = (0.5 * scale + r.uniform(-0.015, 0.015, size=(300, 3))).astype(np.float32)
+        sup, mask = morton_sort(torch.from_numpy(pts), torch.ones(ns, dtype=torch.bool))[:2]
+        if case == "pads":
+            mask[::13] = False
+        q = sup[torch.from_numpy(r.permutation(ns)[:200])]
+        if case != "ties":
+            q = q + torch.from_numpy(r.normal(scale=0.01, size=q.shape).astype(np.float32))
+        clouds.append(sup)
+        masks.append(mask)
+        queries.append(q)
+    return torch.stack(queries), torch.stack(clouds), torch.stack(masks)
+
+
+def _recorded(monkeypatch, module, name):
+    """Record the arguments of ``module.name`` while calling it."""
+    calls, real = [], getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a: calls.append(a) or real(*a))
+    return calls
+
+
+# (case, k, tile, m_tiles, ns, scale): "random" at scale 1 m has ~100
+# candidates within the radius (past the k = 40 buffer's first fill).
+SEARCH_CASES = [
+    ("random", 40, 128, 12, 2560, 1.0),
+    ("random", 1, 128, 4, 2560, 1.0),
+    ("ties", 9, 32, 6, 640, 3.0),
+    ("dense", 40, 32, 8, 640, 3.0),
+    ("dense", 100, 32, 8, 640, 3.0),
+    ("nearest", 1, 32, 4, 640, 3.0),
+    ("pads", 16, 32, 6, 640, 3.0),
+]
+
+
+@pytest.mark.parametrize("case,k,tile,m_tiles,ns,scale", SEARCH_CASES)
+def test_k1_fused_search_matches_plain_chain(cuda, monkeypatch, case, k, tile, m_tiles, ns,
+                                             scale):
+    """The fused K1 (distances, top-k, cutoff, mapping in one launch)
+    against its plain chain on the same card inputs: idx and lidx equal,
+    and equal again on a second run; both clouds in one launch."""
+    import pcrcg_tpu_torch.ops.tiled_search as tts
+
+    qs, clouds, masks = _search_clouds(case, ns, scale)
+    calls = _recorded(monkeypatch, tts, "tiled_search")
+    idx, lidx, _ = tts.radius_search_tiled_batch(
+        qs.to(cuda), clouds.to(cuda), masks.to(cuda), 0.33, k, tile=tile, m_tiles=m_tiles,
+        return_local=True,
+    )
+    (args,) = calls
+    want_idx, want_lidx = tiled_search_plain(*args)
+    again_idx, again_lidx = tiled_search(*args)
     torch.cuda.synchronize()
-    assert torch.equal(torch.isinf(got), torch.isinf(want))
-    fin = torch.isfinite(want)
-    # Same fp32 operations in the same order; fp64-emulated fmas in the
-    # plain version may round a rare exact midpoint differently.
-    assert float((got[fin] - want[fin]).abs().max()) <= 1e-5
+    assert idx.dtype == torch.int64 and lidx.dtype == torch.int32
+    assert torch.equal(idx, want_idx) and torch.equal(lidx, want_lidx)
+    assert torch.equal(again_idx, idx) and torch.equal(again_lidx, lidx)
+    cand = m_tiles * tile
+    in_radius = (tiled_search_plain(*args[:3], cand, *args[4:])[1] < cand).sum(-1)
+    if case == "dense":
+        assert int(in_radius.max()) > 128  # the survivor buffer overflowed
+    if case == "random" and k > 1:
+        assert int(in_radius.max()) > k
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "dense"])
+def test_k1_value_mode_is_bit_equal_to_amin(cuda, monkeypatch, case):
+    import pcrcg_tpu_torch.ops.tiled_search as tts
+
+    qs, clouds, masks = _search_clouds(case, 640)
+    calls = _recorded(monkeypatch, tts, "tiled_min_dist_sq")
+    got = tts.min_dist_sq_tiled(qs[0].to(cuda), clouds[0].to(cuda), masks[0].to(cuda),
+                                tile=32, m_tiles=6)
+    (args,) = calls
+    want = tiled_min_dist_sq_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (200,) and torch.equal(got, want)
 
 
 CASES = [
@@ -398,13 +471,18 @@ def test_kpconv_weights_get_a_gradient_on_cuda(cuda):
 
 
 def test_wrappers_reject_bad_arguments(cuda):
-    q = torch.zeros(10, 3, device=cuda)
+    q = torch.zeros(128, 3, device=cuda)
     supa = torch.zeros(2, 4, 32, device=cuda)
+    sel = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        tiled_candidate_distances(q, supa, torch.zeros(1, 2, dtype=torch.int64, device=cuda))
+        tiled_search(q, supa, sel.long(), 4, 0.1, 100, 64)
     with pytest.raises(ValueError):
-        tiled_candidate_distances(q.double(), supa, torch.zeros(1, 2, dtype=torch.int32,
-                                                                device=cuda))
+        tiled_search(q.double(), supa, sel, 4, 0.1, 100, 64)
+    with pytest.raises(ValueError):  # k past the 64 candidates
+        tiled_search(q, supa, sel, 65, 0.1, 100, 64)
+    with pytest.raises(ValueError):  # candidates past a block's shared memory
+        big = torch.zeros(400, 4, 128, device=cuda)
+        tiled_min_dist_sq(q, big, torch.zeros(1, 400, dtype=torch.int32, device=cuda), 100)
 
 
 def _gathered_inputs(cuda, c, d, seed, apart=False):
@@ -488,17 +566,21 @@ def test_k7_kernel_matches_plain(cuda, influence, aggregation, c, d):
     _same_conv(got, want)
 
 
-@pytest.mark.parametrize("influence,c", [("linear", 64), ("gaussian", 128), ("constant", 8),
-                                         ("linear", 512)])
+# C = 1 and 3 take the scalar tail, 136 a ragged last quad group (34 quads
+# over 64 threads a query), 512 four warps a query.
+@pytest.mark.parametrize("c", [1, 3, 64, 136, 512])
+@pytest.mark.parametrize("influence", ["linear", "gaussian", "constant"])
 def test_k8_kernel_matches_plain(cuda, influence, c):
-    rel, nx_t, _, _, kp, _, _ = _gathered_inputs(cuda, c, 4, seed=10)
+    rel, nx_t, _, _, kp, _, _ = _gathered_inputs(cuda, c, 4, seed=10, apart=True)
     nx = nx_t.permute(2, 0, 1).contiguous()
     got_w, got_nn = kpconv_weighted_reduce(rel, nx, kp, 0.06, influence)
+    again_w, again_nn = kpconv_weighted_reduce(rel, nx, kp, 0.06, influence)
     want_w, want_nn = kpconv_weighted_reduce_plain(rel, nx, kp, 0.06, influence)
     torch.cuda.synchronize()
-    assert float((got_nn == want_nn).float().mean()) >= 0.999
+    assert torch.equal(got_nn, want_nn)  # the sums sit far from zero
     # fp32 sums over H neighbors in another order.
     assert _rel_err(got_w, want_w) <= 1e-5
+    assert torch.equal(got_w, again_w) and torch.equal(got_nn, again_nn)
 
 
 @pytest.mark.parametrize("influence,aggregation,c,d", CASES)

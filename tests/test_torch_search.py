@@ -21,7 +21,7 @@ from pcrcg_tpu_torch.ops import subsample as tsub
 from pcrcg_tpu_torch.ops import tiled_search as tts
 from pcrcg_tpu_torch.ops.search_kernel import (
     pack_supports_tile_major,
-    tiled_candidate_distances,
+    tiled_candidate_distances_plain,
 )
 
 T = torch.from_numpy
@@ -113,7 +113,7 @@ def test_k1_plain_matches_pallas_interpret():
         jnp.asarray(q), j_pack(jnp.asarray(sup), jnp.asarray(smask), tile),
         jnp.asarray(sel), tile=tile, interpret=True,
     ))
-    got = tiled_candidate_distances(
+    got = tiled_candidate_distances_plain(
         T(q), pack_supports_tile_major(T(sup), T(smask), tile), T(sel)
     ).numpy()
     assert got.shape == want.shape
@@ -187,3 +187,71 @@ def test_min_dist_sq_tiled_matches():
     want = np.asarray(jts.min_dist_sq_tiled(jnp.asarray(q), jnp.asarray(sup),
                                             jnp.asarray(smask), tile=32, m_tiles=6))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+
+
+def _edge_clouds(case, ns=640):
+    """Two Z-ordered clouds (numpy) for the edge cases of the tiled search:
+    "ties" and "nearest" hold every support point twice (exact distance
+    ties, so the lower candidate position must win); "dense" puts 300 of
+    the points in a 3 cm ball (its queries have more candidates within the
+    radius than k, and than the kernel's 128-entry survivor buffer);
+    "pads" masks scattered supports.  Queries are support points with a
+    little noise, nq not a multiple of 128 (pad-query rows)."""
+    clouds, masks, queries = [], [], []
+    for seed in (11, 12):
+        r = np.random.default_rng(seed)
+        pts = r.uniform(0, 3, size=(ns, 3)).astype(np.float32)
+        if case in ("ties", "nearest"):
+            pts[1::2] = pts[::2]
+        elif case == "dense":
+            pts[:300] = (1.5 + r.uniform(-0.015, 0.015, size=(300, 3))).astype(np.float32)
+        sup, smask = (np.array(a) for a in jsub.morton_sort(jnp.asarray(pts),
+                                                            jnp.ones(ns, bool))[:2])
+        if case == "pads":
+            smask[::13] = False
+        q = sup[r.permutation(ns)[:200]]
+        if case != "ties":
+            q = q + r.normal(scale=0.01, size=q.shape).astype(np.float32)
+        clouds.append(sup)
+        masks.append(smask)
+        queries.append(q.astype(np.float32))
+    return np.stack(queries), np.stack(clouds), np.stack(masks)
+
+
+@pytest.mark.parametrize("case,k,m_tiles", [("ties", 9, 6), ("dense", 40, 8), ("nearest", 1, 4),
+                                            ("pads", 16, 6)])
+def test_tiled_search_edge_cases_match_per_cloud(case, k, m_tiles):
+    """The port's batched tiled search (plain chain on the CPU; the same
+    chain the card's fused K1 is held to) against the compiled JAX
+    per-cloud ``radius_search_tiled(exact=True, return_local=True)``,
+    whose distances round as the port's: idx, lidx and tiles equal index
+    for index, pad-query rows included."""
+    tile, radius = 32, 0.33
+    qs, clouds, masks = _edge_clouds(case)
+    idx, lidx, tiles = tts.radius_search_tiled_batch(
+        T(qs), T(clouds), T(masks), radius, k, tile=tile, m_tiles=m_tiles, return_local=True,
+    )
+    search = jax.jit(lambda *a: jts.radius_search_tiled(
+        *a, radius, k, tile=tile, m_tiles=m_tiles, exact=True, return_local=True))
+    for b in range(2):
+        w_idx, w_lidx, w_tiles = search(qs[b], clouds[b], masks[b])
+        np.testing.assert_array_equal(idx[b].numpy(), np.asarray(w_idx))
+        np.testing.assert_array_equal(lidx[b].numpy(), np.asarray(w_lidx))
+        np.testing.assert_array_equal(tiles[b].numpy(), np.asarray(w_tiles))
+    assert lidx.shape == (2, 256, k)
+    cand = m_tiles * tile
+    assert bool((lidx[:, 200:] == cand).all())  # pad-query rows: all shadow
+    if case in ("ties", "nearest"):
+        # Equal distances decided the order: consecutive kept neighbors at
+        # the same support point (k > 1).
+        assert bool((lidx[:, :200] < cand).any())
+        if k > 1:
+            sup = T(clouds)[torch.arange(2)[:, None, None], idx.clamp(max=clouds.shape[1] - 1)]
+            kept = idx < clouds.shape[1]
+            tied = (sup[:, :, :-1] == sup[:, :, 1:]).all(-1) & kept[..., 1:]
+            assert bool(tied.any())
+    if case == "dense":
+        # More in-radius candidates than the survivor buffer holds.
+        full = tts.radius_search_tiled_batch(T(qs), T(clouds), T(masks), radius, cand,
+                                             tile=tile, m_tiles=m_tiles)
+        assert int((full < clouds.shape[1]).sum(-1).max()) > 128
