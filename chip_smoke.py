@@ -65,6 +65,22 @@ Phases, each printed as it completes:
                K2 and K5 not; the gathers' feature gradient is a plain
                ``index_add_`` (the backward of ``index_select``).
 11. agree-untiled — 4 and 6 once more under ``kpconv_tiled=False``.
+12. exact-div — the color branch's dequantization on the card, over every
+               uint8 (÷255) and uint16 (÷1000) value, equal to numpy's
+               correctly rounded quotient.
+13. kernels-images, path-images — the color model of
+               ``configs/train/indoor.yaml`` (``PCRCG``: ResNet-50 UNet, 2
+               images a cloud at 240×320, in_feats_dim 129, the [path]
+               widths and budgets; seeded random weights) on renders of the
+               pair: K2's block-0 call at C = 129 as in 2; the backbone +
+               lift's device time and the share of points lifted from an
+               image; then 3 with the images (K1 and K2 launched).
+14. train-images — K3's block-0 call at C = 129 from the backward of one
+               image ``train_step``, as in 2; then 5 with the images, and
+               every backbone2d tensor (buffers too) bit-identical after it.
+15. agree-images — 4 for the color model (ResNet-50 UNet, 120×160
+               renders of the crop): transform RMSE <= 0.2 m, descriptors,
+               and the lifted features within ``LIFT_AGREE_BOUND``.
 
 Then it prints the card's ``name, power.limit``, one JSON line with every
 kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
@@ -231,8 +247,9 @@ def record_calls(run, targets):
     return calls
 
 
-def record_kernel_inputs(cfg, batch, model):
-    """K2 arguments of one serving forward (pyramid + KPFCNN)."""
+def record_kernel_inputs(cfg, batch, model, images=None):
+    """K2 arguments of one serving forward (pyramid + KPFCNN, or PCRCG with
+    ``images``)."""
     import torch
     import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
     from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
@@ -240,7 +257,10 @@ def record_kernel_inputs(cfg, batch, model):
     def run():
         with torch.no_grad():
             pyramid = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0])
-            model(pyramid, batch.features[0])
+            if images is None:
+                model(pyramid, batch.features[0])
+            else:
+                model(pyramid, batch.features[0], images)
 
     return record_calls(run, {"K2": (kt_mod, "kpconv_tiled")})
 
@@ -302,7 +322,7 @@ def recording_k1(outer):
             setattr(mod, name, real[id(mod), name])
 
 
-def record_backward_inputs(cfg, batch, state, generator):
+def record_backward_inputs(cfg, batch, state, generator, images=None):
     """K3 / K4 / K5 arguments of one full-width ``train_step``: K3's
     candidate-tile entry with K4 folded in (``kpconv_tiled_bwd``) or, on a
     tree from before the fold (timed for comparison), K3 and K4 apart."""
@@ -315,7 +335,8 @@ def record_backward_inputs(cfg, batch, state, generator):
         targets["K3"] = (kt_mod, "kpconv_tiled_bwd")
     else:
         targets.update(K3=(kf_mod, "kpconv_bwd"), K4=(kt_mod, "scatter_ds_feats"))
-    return record_calls(lambda: train_step(state, cfg, batch, generator=generator), targets)
+    kw = {} if images is None else dict(images=images)  # older trees take no images
+    return record_calls(lambda: train_step(state, cfg, batch, generator=generator, **kw), targets)
 
 
 def _chain_after_distances(d2, sel, k, r2, nq, ns, batch, tile, supa_tiles):
@@ -430,12 +451,13 @@ def phase_k1(calls):
     return res
 
 
-def phase_k2(calls):
+def phase_k2(calls, tag="kernels", shapes=((1, 128), (64, 64), (256, 256), (512, 512))):
     """K2 against its plain version on every recorded call, and timed: the
     whole kernel, its phase A (influence + reduce) and phase B (the 3xTF32
     W product) apart, ``torch.matmul`` in fp32 on phase B's operands, the
     plain version; bound with the W product as three TF32 passes (and, for
-    comparison, all in fp32 on the CUDA cores)."""
+    comparison, all in fp32 on the CUDA cores).  Every (C, D) of
+    ``shapes`` must be among the calls."""
     import torch
     from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled, kpconv_tiled_plain
 
@@ -448,7 +470,7 @@ def phase_k2(calls):
     torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmul in full fp32
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, a_flops=0.0, w_flops=0.0,
                a_ms=0.0, b_ms=0.0, matmul_ms=0.0)
-    shapes = set()
+    seen = set()
     for i, (args, kw) in enumerate(calls):
         q, s, feats, lidx, tiles, kp, w = args[:7]
         # The path keeps phase A's ``weighted`` (the backward's input); the
@@ -498,12 +520,12 @@ def phase_k2(calls):
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes),
                          ("a_flops", a_flops), ("w_flops", w_flops)):
             res[key] += val
-        shapes.add((c_in, d))
+        seen.add((c_in, d))
         print(f"  K2 call {i}: Nq={nq} H={h} (C,D)=({c_in},{d}) max|d|={err:.3e} rel={rel:.3e} "
               f"kernel {ms:.4f} ms{split} plain {plain_ms:.4f} ms bound {b3:.4f} ms "
               f"({b3_by}; all fp32: {b32:.4f})", flush=True)
-    for need in ((1, 128), (64, 64), (256, 256), (512, 512)):
-        check(need in shapes, f"K2: shape {need} not exercised")
+    for need in shapes:
+        check(need in seen, f"K2: shape {need} not exercised")
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["a_flops"],
                                              TF32_PASSES * res["w_flops"])
     bound_fp32 = bound(res["nbytes"], res["a_flops"] + res["w_flops"])[0]
@@ -513,7 +535,7 @@ def phase_k2(calls):
         split = (f" = phase A {res['a_ms']:.4f} + phase B {res['b_ms']:.4f} ms "
                  f"({w_tflops:.1f} TFLOP/s of TF32 product, {res['w_flops'] / 1e9:.1f} GFLOP x "
                  f"{TF32_PASSES}; torch.matmul fp32 {res['matmul_ms']:.4f} ms)")
-    print(f"[kernels] K2 over {len(calls)} calls: {res['ms']:.4f} ms{split}; bound "
+    print(f"[{tag}] K2 over {len(calls)} calls: {res['ms']:.4f} ms{split}; bound "
           f"{res['bound_ms']:.4f} ms (W as 3xTF32) / {bound_fp32:.4f} ms (all fp32)", flush=True)
     res["library_ms"] = None  # no single PyTorch call computes a KPConv
     return res
@@ -531,7 +553,7 @@ def fp64_err(got, a, b):
     return float((got.double() - exact).abs().max()) / max(float(exact.abs().max()), 1e-300)
 
 
-def phase_k3_k4(calls):
+def phase_k3_k4(calls, tag="kernels"):
     """K3's candidate-tile entry with K4's scatter folded in, on every
     recorded call: dW and ds against K3's then K4's plain versions
     (relative 1e-4; ds is summed by atomics), dW bit for bit against a
@@ -635,7 +657,7 @@ def phase_k3_k4(calls):
                                            TF32_PASSES * k3["prod_flops"])
     products = k3["dw_ms"] + k3["gw_ms"]
     rate = TF32_PASSES * k3["prod_flops"] / (products * 1e-3) / 1e12
-    print(f"[kernels] K3 (tiled, K4's scatter folded in) over {len(calls)} calls: "
+    print(f"[{tag}] K3 (tiled, K4's scatter folded in) over {len(calls)} calls: "
           f"{k3['ms']:.4f} ms = products {products:.4f} (dW {k3['dw_ms']:.4f} + gW "
           f"{k3['gw_ms']:.4f}; {rate:.1f} TFLOP/s of TF32 product, "
           f"{k3['prod_flops'] / 1e9:.1f} GFLOP x {TF32_PASSES}; torch.matmul fp32 on the same "
@@ -644,7 +666,7 @@ def phase_k3_k4(calls):
           f"products as 3xTF32, dnx not written); unfused rule (all fp32, dnx written and read):"
           f" K3 {bound(old['k3_bytes'], old['k3_flops'])[0]:.4f} + K4 "
           f"{bound(old['k4_bytes'], old['k4_flops'])[0]:.4f} ms", flush=True)
-    print(f"[kernels] K4: its scatter runs inside K3's entry ({n_ds} of the {len(calls)} calls),"
+    print(f"[{tag}] K4: its scatter runs inside K3's entry ({n_ds} of the {len(calls)} calls),"
           f" no time of its own; index_add_ over the real rows of the plain dnx, with its zero "
           f"fill: {k4['library_ms']:.4f} ms", flush=True)
     for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
@@ -1127,10 +1149,11 @@ def phase_k3g(calls):
     return res
 
 
-def phase_path(cfg, batch, model, tag="path", expect=None):
-    """``register_pair`` at full width: one warm call, then 3 timed calls
-    with the counters zeroed just before them.  ``expect`` maps a kernel id
-    to its launches per pair (None: at least one)."""
+def phase_path(cfg, batch, model, tag="path", expect=None, images=None):
+    """``register_pair`` at full width (with ``images``: the color model):
+    one warm call, then 3 timed calls with the counters zeroed just before
+    them.  ``expect`` maps a kernel id to its launches per pair (None: at
+    least one)."""
     import torch
     from pcrcg_tpu_torch import kernels
     from pcrcg_tpu_torch.eval.tester import register_pair
@@ -1138,8 +1161,9 @@ def phase_path(cfg, batch, model, tag="path", expect=None):
     expect = {"K1": None, "K2": None} if expect is None else expect
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = (model, cfg, batch.points[0], batch.masks[0], batch.features[0], gen)
+    kw = {} if images is None else dict(images=images)
     t0 = time.perf_counter()
-    register_pair(*args)
+    register_pair(*args, **kw)
     torch.cuda.synchronize()
     print(f"  warm call {time.perf_counter() - t0:.3f} s", flush=True)
 
@@ -1147,7 +1171,7 @@ def phase_path(cfg, batch, model, tag="path", expect=None):
     kernels.reset_launches()
     t0 = time.perf_counter()
     for _ in range(n_pairs):
-        res = register_pair(*args)
+        res = register_pair(*args, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1207,9 +1231,18 @@ def phase_routes(batch, configs):
         check(all(v <= 1e-3 for v in diffs.values()), f"[routes] {name}: scores {diffs}")
 
 
-def phase_agree(tag="agree", **overrides):
+# [agree-images]: the largest |CUDA - CPU| of the lifted features over their
+# largest entry may not exceed this (ResNet-50 UNet at 120x160, fp32 on both
+# devices): 1.6e-5 measured on an H100 (PERF.md); TF32 convolutions would
+# give ~1e-3.
+LIFT_AGREE_BOUND = 1e-4
+
+
+def phase_agree(tag="agree", images_hw=None, **overrides):
     """CUDA path vs CPU plain path on a small crop, same weights, same draws
-    (``overrides``: Config fields, the KPConv route)."""
+    (``overrides``: Config fields, the KPConv route).  With ``images_hw``
+    (H, W): the color model (``PCRCG``, ResNet-50 UNet) on renders of the
+    crop at that size, and its lifted features compared too."""
     import numpy as np
     import torch
     from pcrcg_tpu_torch.assets import demo_cloud_pair
@@ -1220,6 +1253,8 @@ def phase_agree(tag="agree", **overrides):
 
     budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
                       query_chunk=512, search_tile=128, search_m_tiles=4)
+    if images_hw is not None:
+        overrides = dict(overrides, image_feature=True, in_feats_dim=129)
     cfg = tiny_test_config(budgets=budgets, **overrides)
     src, tgt = demo_cloud_pair()
 
@@ -1229,18 +1264,34 @@ def phase_agree(tag="agree", **overrides):
 
     sample = dict(src_pcd=crop(src, 2048), tgt_pcd=crop(tgt, 2000), rot=np.eye(3),
                   trans=np.zeros(3))
+    images, init, kw, lifted = None, init_kpfcnn, {}, {}
+    if images_hw is not None:
+        from pcrcg_tpu_torch.assets import render_pair_images
+        from pcrcg_tpu_torch.models.lift import IMAGE_KEYS, images_to
+        from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
+        from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+
+        images = render_pair_images(sample["src_pcd"], sample["tgt_pcd"], cfg.img_num, seed=1,
+                                    height=images_hw[0], width=images_hw[1])
+        init = init_pcrcg
     n_points, iters, chunk = 512, 8192, 1024
     gen = torch.Generator().manual_seed(1)
     uniforms = (torch.rand(2048, generator=gen), torch.rand(2048, generator=gen))
     picks = torch.randint(0, n_points, (iters // chunk, chunk, 3), generator=gen)
     results = {}
     for dev in ("cpu", "cuda"):
-        batch = make_pair_batch([sample], 2048, device=dev)
-        model = init_kpfcnn(cfg, seed=2, device=dev)
+        batch = make_pair_batch([sample], 2048, in_feats_dim=cfg.in_feats_dim, device=dev)
+        model = init(cfg, seed=2, device=dev)
+        if images is not None:
+            kw = dict(images=images_to(images, dev))
+            with torch.no_grad():
+                pyr = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0])
+                lifted[dev] = model.lift(pyr.points[0], pyr.masks[0],
+                                         *(kw["images"][k] for k in IMAGE_KEYS)).cpu()
         res = register_pair(
             model, cfg, batch.points[0], batch.masks[0], batch.features[0], device=dev,
             n_points=n_points, num_iterations=iters, hypothesis_chunk=chunk,
-            uniforms=tuple(u.to(dev) for u in uniforms), picks=picks.to(dev),
+            uniforms=tuple(u.to(dev) for u in uniforms), picks=picks.to(dev), **kw,
         )
         results[dev] = (res, batch.points[0][0][batch.masks[0][0]].double().cpu())
     (rc, pts), (rg, _) = results["cpu"], results["cuda"]
@@ -1254,18 +1305,31 @@ def phase_agree(tag="agree", **overrides):
     fg = rg["outputs"]["feats_f"].cpu()
     mask = make_pair_batch([sample], 2048).masks[0]
     cos = (fc * fg).sum(-1)[mask]
+    desc = float((fc - fg).abs().max())
+    extra = ""
+    if lifted:
+        lift_err = rel_err(lifted["cuda"], lifted["cpu"])[1]
+        share = float((lifted["cpu"][..., :-1] != 1).any(-1)[mask].float().mean())
+        extra = (f", lifted features max relative error {lift_err:.3e} (bound "
+                 f"{LIFT_AGREE_BOUND:.0e}; images {images_hw[0]}x{images_hw[1]}, ResNet-"
+                 f"{cfg.backbone2d_depth} UNet, {share:.3f} of the real points lifted)")
     print(f"[{tag}] CUDA vs CPU plain path (N0=2048): transform RMSE {rmse:.3e} m, "
-          f"descriptor cosine min {float(cos.min()):.7f}, fitness "
-          f"{float(rg['fitness']):.4f} vs {float(rc['fitness']):.4f}", flush=True)
+          f"descriptor cosine min {float(cos.min()):.7f} (max |d| {desc:.3e}), fitness "
+          f"{float(rg['fitness']):.4f} vs {float(rc['fitness']):.4f}{extra}", flush=True)
     check(rmse <= 0.2, f"CUDA and CPU transforms differ: RMSE {rmse}")
     check(float(cos.min()) > 0.999, "CUDA and CPU descriptors differ")
+    if lifted:
+        check(lift_err <= LIFT_AGREE_BOUND, f"CUDA and CPU lifted features differ: {lift_err}")
 
 
 def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4", "K5"),
-                idle=()):
-    """``train_step`` at full width: one warm step, then 3 timed steps with
-    the launch counters zeroed just before them; the kernels ``launched``
-    must have run, those in ``idle`` not."""
+                idle=(), images=None, frozen=None):
+    """``train_step`` at full width (with ``images``, batched, the color
+    model): one warm step, then 3 timed steps with the launch counters
+    zeroed just before them; the kernels ``launched`` must have run, those
+    in ``idle`` not.  Every tensor of the state dict under the prefix
+    ``frozen`` (parameters and buffers) must be bit-identical after the
+    four steps."""
     import torch
     from pcrcg_tpu_torch import kernels
     from pcrcg_tpu_torch.ops.neighbors import min_dist_sq, radius_sq
@@ -1280,12 +1344,15 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
     check(share >= 0.02, f"overlap share {share}: the GT pose maps the wrong way")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = {} if images is None else dict(images=images)
+    kept = {} if frozen is None else {k: v.clone() for k, v in state.model.state_dict().items()
+                                      if k.startswith(frozen)}
     t0 = time.perf_counter()
-    train_step(state, cfg, batch, generator=gen)
+    train_step(state, cfg, batch, generator=gen, **kw)
     torch.cuda.synchronize()
     print(f"  warm step {time.perf_counter() - t0:.3f} s", flush=True)
 
-    named = dict(state.model.named_parameters())
+    named = {n: p for n, p in state.model.named_parameters() if p.requires_grad}
     grad_norms = {n: [] for n in named}
     hooks = [p.register_post_accumulate_grad_hook(
         lambda p, n=n: grad_norms[n].append(p.grad.detach().norm())) for n, p in named.items()]
@@ -1297,7 +1364,7 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
     try:
         totals = []
         for _ in range(n_steps):
-            stats = train_step(state, cfg, batch, generator=gen)
+            stats = train_step(state, cfg, batch, generator=gen, **kw)
             totals.append(stats["total"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1332,6 +1399,12 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
         print(f"  unchanged in fp32 (update below the spacing, momentum non-zero): {static}",
               flush=True)
     check(not unmoved, f"parameters without an update: {unmoved}")
+    if frozen is not None:
+        after = state.model.state_dict()
+        changed = [k for k, v in kept.items() if not torch.equal(after[k], v)]
+        print(f"  {len(kept)} tensors under {frozen} (parameters and buffers): "
+              f"{len(kept) - len(changed)} bit-identical after the {n_steps + 1} steps", flush=True)
+        check(len(kept) > 0 and not changed, f"frozen tensors changed: {changed[:5]}")
     check(all(launches[k] > 0 for k in launched), f"[{tag}] a kernel never launched: {launches}")
     check(all(launches[k] == 0 for k in idle), f"[{tag}] an off-route kernel ran: {launches}")
     return launches
@@ -1358,6 +1431,50 @@ def _overlap_crop(n_src, n_tgt):
 
     return dict(src_pcd=near(src, center, n_src), tgt_pcd=near(tgt, center @ rot.T + trans, n_tgt),
                 rot=rot, trans=trans)
+
+
+def phase_exact_div():
+    """``models/lift.py::_exact_div`` on the card over every uint8 (÷255) and
+    uint16 (÷1000) value: equal to numpy's correctly rounded float32
+    quotient.  The float32 division by the Python scalar (a multiply by the
+    reciprocal on the card) is counted beside it."""
+    import numpy as np
+    import torch
+    from pcrcg_tpu_torch.models.lift import _exact_div
+
+    for dtype, denom in ((np.uint8, 255.0), (np.uint16, 1000.0)):
+        x = np.arange(np.iinfo(dtype).max + 1, dtype=dtype)
+        want = x.astype(np.float32) / np.float32(denom)
+        xt = torch.from_numpy(x).cuda()
+        bad = int((_exact_div(xt, denom).cpu().numpy() != want).sum())
+        naive = int(((xt.to(torch.float32) / denom).cpu().numpy() != want).sum())
+        print(f"[exact-div] {np.dtype(dtype).name} / {denom:g} on the card: {bad} of {len(x)} "
+              f"values differ from numpy's quotient (float32 division by the scalar: {naive})",
+              flush=True)
+        check(bad == 0, f"_exact_div differs from numpy on {bad} {np.dtype(dtype).name} values")
+
+
+def phase_lift_stage(cfg, batch, model, images):
+    """The color model's backbone + lift on the [path-images] inputs: its
+    device time (``time_ms``) and the share of the real points that take
+    their features from an image."""
+    import torch
+    from pcrcg_tpu_torch.models.lift import IMAGE_KEYS
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+
+    pyr = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0])
+    args = (pyr.points[0], pyr.masks[0], *(images[k] for k in IMAGE_KEYS))
+    feats = model.lift(*args)
+    ms = time_ms(lambda: model.lift(*args), iters=5, warmup=1)
+    mask = pyr.masks[0]
+    share = float((feats[..., :-1] != 1).any(-1)[mask].float().mean())
+    n_img, h, w = images["colors"].shape[1:4]
+    print(f"[path-images] backbone + lift {ms:.3f} ms device time a pair (ResNet-"
+          f"{cfg.backbone2d_depth} UNet over 2 x {n_img} images {h}x{w}), {share:.4f} of the "
+          f"real points lifted from an image", flush=True)
+    check(tuple(feats.shape) == (2, mask.shape[1], cfg.in_feats_dim), "lifted features shape")
+    check(bool(torch.isfinite(feats).all()), "lifted features not finite")
+    check(share > 0.1, f"only {share} of the points lifted from an image")
 
 
 def phase_agree_train(tag="agree-train", **overrides):
@@ -1459,10 +1576,12 @@ def main() -> int:
 
     import pcrcg_tpu_torch.losses as losses_mod
     import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
-    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose
-    from pcrcg_tpu_torch.config import Config
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, render_pair_images
+    from pcrcg_tpu_torch.config import Config, load_config
     from pcrcg_tpu_torch.data.pair import make_pair_batch
     from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.models.lift import images_to
+    from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
     from pcrcg_tpu_torch.train.state import TrainState
 
     t_start = time.perf_counter()
@@ -1551,6 +1670,47 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_agree("agree-untiled", kpconv_tiled=False)
         phase_agree_train("agree-train-untiled", kpconv_tiled=False)
+
+        # The color model of configs/train/indoor.yaml (PCRCG: ResNet-50
+        # UNet, 2 images a cloud, in_feats_dim 129, the [path] widths and
+        # budgets) on 240x320 renders of the pair.
+        phase_exact_div()
+        cfg_i = load_config(str(repo / "configs" / "train" / "indoor.yaml"))
+        check(cfg_i.image_feature and cfg_i.in_feats_dim == 129 and cfg_i.backbone2d_depth == 50
+              and cfg_i.budgets.points == cfg.budgets.points
+              and cfg_i.budgets.neighbors == cfg.budgets.neighbors
+              and cfg_i.first_feats_dim == cfg.first_feats_dim,
+              "configs/train/indoor.yaml is not the color model at the [path] width")
+        batch_i = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
+                                  cfg_i.budgets.points[0], in_feats_dim=cfg_i.in_feats_dim,
+                                  device="cuda")
+        images = images_to(render_pair_images(src, tgt, cfg_i.img_num, pose=(rot, trans)), "cuda")
+        model_i = init_pcrcg(cfg_i, seed=0, device="cuda")
+        calls = [c for c in record_kernel_inputs(cfg_i, batch_i, model_i, images)["K2"]
+                 if c[0][6].shape[1] == cfg_i.in_feats_dim]
+        print(f"[kernels-images] recorded {len(calls)} K2 call at C = {cfg_i.in_feats_dim} "
+              "(block 0) in one serving forward of the color model", flush=True)
+        check(len(calls) == 1, "K2: no single block-0 call at C = 129")
+        phase_k2(calls, tag="kernels-images", shapes=((cfg_i.in_feats_dim, 128),))
+        phase_lift_stage(cfg_i, batch_i, model_i, images)
+        phase_path(cfg_i, batch_i, model_i, "path-images",
+                   {"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0}, images=images)
+        del model_i, calls
+        torch.cuda.empty_cache()
+        state_i = TrainState(cfg_i, init_pcrcg(cfg_i, seed=1, device="cuda"))
+        batched = {k: v[None] for k, v in images.items()}
+        calls = [c for c in record_backward_inputs(cfg_i, batch_i, state_i, gen, batched)["K3"]
+                 if c[0][5].shape[1] == cfg_i.in_feats_dim]
+        print(f"[kernels-images] recorded {len(calls)} K3 call at C = {cfg_i.in_feats_dim} "
+              "(block 0) in the backward of one image train_step", flush=True)
+        check(len(calls) == 1, "K3: no single block-0 call at C = 129")
+        phase_k3_k4(calls, tag="kernels-images")
+        del calls
+        phase_train(cfg_i, batch_i, state_i, "train-images", idle=("K6", "K7", "K8"),
+                    images=batched, frozen="lift.backbone2d.")
+        del state_i, images, batched
+        torch.cuda.empty_cache()
+        phase_agree("agree-images", images_hw=(120, 160))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

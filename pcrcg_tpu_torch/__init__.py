@@ -3,9 +3,10 @@
 The JAX package ``pcrcg_tpu`` stays the reference; this package mirrors its
 module names (``ops/pyramid.py`` here is the counterpart of
 ``pcrcg_tpu/ops/pyramid.py``) so every function can be held against its
-JAX twin.  The geometry-only registration path runs here end to end:
-``make_pair_batch`` -> ``build_pyramid`` -> ``KPFCNN`` -> interest-point
-sampling -> feature matching -> RANSAC.
+JAX twin.  The registration path runs here end to end:
+``make_pair_batch`` -> ``build_pyramid`` -> ``KPFCNN`` (or ``PCRCG``: the
+2D backbone's image features lifted onto the points first) ->
+interest-point sampling -> feature matching -> RANSAC; so does training.
 
 Its two Pallas kernels became hand-written CUDA C++ for ``sm_90a``
 (``csrc/``): the tiled-search distance kernel and the candidate-tile

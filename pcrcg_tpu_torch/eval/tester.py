@@ -1,6 +1,7 @@
 """Pair -> SE(3) (counterpart of ``pcrcg_tpu/eval/tester.py::register_pair_jit``).
 
-The same sequence as the JAX package: pyramid, KPFCNN forward,
+The same sequence as the JAX package: pyramid, model forward (KPFCNN, or
+PCRCG with its image lift),
 interest-point sampling by overlap x saliency (reference
 lib/tester.py:146-164), feature matching, RANSAC.  The GT descriptor
 metrics of the JAX version are not ported yet.
@@ -13,15 +14,15 @@ import torch
 
 from pcrcg_tpu_torch import resolve_device
 from pcrcg_tpu_torch.config import Config
-from pcrcg_tpu_torch.models.kpfcnn import KPFCNN, refuse_image_feature
-from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+from pcrcg_tpu_torch.models.pcrcg import refuse_image_feature
 from pcrcg_tpu_torch.registration.ransac import feature_correspondences, ransac_pose
 from pcrcg_tpu_torch.registration.sampling import weighted_sample_topk
+from pcrcg_tpu_torch.train.step import forward_pair
 
 
 @torch.no_grad()
 def register_pair(
-    model: KPFCNN,
+    model,
     cfg: Config,
     points: torch.Tensor,  # [2, N0, 3] padded at PAD_COORD, Z-ordered
     masks: torch.Tensor,  # [2, N0]
@@ -35,16 +36,19 @@ def register_pair(
     hypothesis_chunk: int = 1024,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
     picks: Optional[torch.Tensor] = None,
+    images=None,
     device=None,
 ):
     """Full pair -> transform on ``device``: CUDA unless the caller names the
     CPU (raises without CUDA otherwise); the inputs move there and the
     model must already live there.  Randomness comes from ``generator`` (on
     that device), or from injected draws: ``uniforms`` (src, tgt) for the
-    Gumbel sampling and ``picks`` for RANSAC.  Returns a dict with
-    transform [3,4], fitness, inlier_rmse and the model outputs.  Raises on
-    an ``image_feature`` config (no color branch yet)."""
-    refuse_image_feature(cfg)
+    Gumbel sampling and ``picks`` for RANSAC.  ``model`` is a ``KPFCNN``,
+    or a ``PCRCG`` that takes ``images`` (``models/lift.py``; numpy or
+    torch leaves); an ``image_feature`` config without images raises.
+    Returns a dict with transform [3,4], fitness, inlier_rmse and the
+    model outputs."""
+    refuse_image_feature(cfg, images)
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev != dev and not (model_dev.type == dev.type == "cuda" and dev.index is None):
@@ -54,8 +58,7 @@ def register_pair(
         uniforms = [u.to(dev) for u in uniforms]
     if picks is not None:
         picks = picks.to(dev)
-    pyramid = build_pyramid_cfg(cfg, points, masks)
-    out = model(pyramid, features)
+    out = forward_pair(model, cfg, points, masks, features, images)[0]
     scores = out["scores_overlap"] * out["scores_saliency"]
     u_src, u_tgt = uniforms if uniforms is not None else (None, None)
     src_idx, src_ok = weighted_sample_topk(scores[0], masks[0], n_points, generator, u_src)

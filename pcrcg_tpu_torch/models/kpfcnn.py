@@ -132,19 +132,6 @@ def masked_l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-24) -> t
     return x * torch.rsqrt((x * x).sum(dim, keepdim=True) + eps)
 
 
-def refuse_image_feature(cfg: Config) -> None:
-    """Raise on a config that asks for the color branch (``image_feature``):
-    the port has no image lift yet, and the JAX package's model refuses
-    such a config without image inputs (pcrcg_tpu/models/pcrcg.py:34-35),
-    where a geometry-only KPFCNN would run silently over ones columns."""
-    if cfg.image_feature:
-        raise NotImplementedError(
-            "image_feature=True: the color branch (ResUNet image lift) is not ported yet, "
-            "and the reference needs image inputs for this config; set image_feature=False "
-            "and in_feats_dim=1 for the geometry-only model"
-        )
-
-
 class KPFCNN(nn.Module):
     """Forward over one pair: ``pyramid`` (ops/pyramid.py) and ``features``
     [2, N0, in_feats_dim] -> dict with feats_f [2, N0, final_feats_dim]

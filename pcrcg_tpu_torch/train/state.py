@@ -16,7 +16,10 @@ lib/trainer.py:361-367):
 
 Every trainable parameter takes part in every update (a missing gradient
 counts as zero), since optax decays and moves the momentum of every leaf.
-The frozen 2D backbone of the color branch is not ported yet.
+A parameter that does not require a gradient takes no part: the frozen 2D
+backbone of ``PCRCG`` gets no decay and no momentum, as the JAX package's
+``trainable_labels`` (pcrcg_tpu/train/state.py:48-63) freezes
+``backbone2d``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Train / eval / infer steps (counterpart of ``pcrcg_tpu/train/step.py``):
-pyramid → KPFCNN forward → losses, per pair of the batch.
+pyramid → model forward (``KPFCNN``, or ``PCRCG`` with its image lift) →
+losses, per pair of the batch.
 
 The JAX package compiles the whole step into one program and maps it over
 the pairs; here it runs eagerly, pair by pair, and each pair's backward
@@ -23,20 +24,27 @@ from pcrcg_tpu_torch.data.pair import PairBatch
 from pcrcg_tpu_torch.geom.so3 import quaternion_from_matrix
 from pcrcg_tpu_torch.losses import LossInputs, metric_loss
 from pcrcg_tpu_torch.models.kpconv import resolve_kpconv_impl
-from pcrcg_tpu_torch.models.kpfcnn import refuse_image_feature
+from pcrcg_tpu_torch.models.lift import images_to
+from pcrcg_tpu_torch.models.pcrcg import refuse_image_feature
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
 from pcrcg_tpu_torch.train.state import TrainState
 
 
-def forward_pair(model, cfg: Config, points, masks, features, with_overflow: bool = False):
-    """One pair: points [2, N, 3], masks [2, N], features [2, N, Cin] ->
-    (outputs, pyramid), plus the per-level voxel-budget overflow [L-1, 2]
-    with ``with_overflow``.  Raises on an ``image_feature`` config (no
-    color branch yet)."""
-    refuse_image_feature(cfg)
+def forward_pair(model, cfg: Config, points, masks, features, images=None,
+                 with_overflow: bool = False):
+    """One pair: points [2, N, 3], masks [2, N], features [2, N, Cin] and,
+    for a ``PCRCG`` with ``image_feature``, its ``images`` dict
+    (``models/lift.py``; numpy or torch leaves) -> (outputs, pyramid),
+    plus the per-level voxel-budget overflow [L-1, 2] with
+    ``with_overflow``.  An ``image_feature`` config without images
+    raises."""
+    refuse_image_feature(cfg, images)
     built = build_pyramid_cfg(cfg, points, masks, with_overflow=with_overflow)
     pyramid, overflow = built if with_overflow else (built, None)
-    out = model(pyramid, features)
+    if images is None:
+        out = model(pyramid, features)
+    else:
+        out = model(pyramid, features, images_to(images, points.device))
     return (out, pyramid, overflow) if with_overflow else (out, pyramid)
 
 
@@ -62,11 +70,12 @@ def loss_from_outputs(cfg: Config, out, pyramid, points, masks, rot, trans,
 
 def pair_loss(model, cfg: Config, points, masks, features, rot, trans,
               uniforms: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+              generator: Optional[torch.Generator] = None,
+              images=None) -> Dict[str, torch.Tensor]:
     """The loss stats of one pair, ``total`` differentiable, plus
     ``max_overflow`` (> 0: the grid subsample dropped voxels past a level's
     budget for this pair)."""
-    out, pyramid, overflow = forward_pair(model, cfg, points, masks, features,
+    out, pyramid, overflow = forward_pair(model, cfg, points, masks, features, images,
                                           with_overflow=True)
     stats = loss_from_outputs(cfg, out, pyramid, points, masks, rot, trans, uniforms,
                               generator)
@@ -74,20 +83,26 @@ def pair_loss(model, cfg: Config, points, masks, features, rot, trans,
     return stats
 
 
+def _pair_images(images, i: int):
+    """Pair ``i`` of a batched image dict (every leaf [B, ...]), or None."""
+    return None if images is None else {k: v[i] for k, v in images.items()}
+
+
 def _stats_over_pairs(model, cfg: Config, batch: PairBatch,
                       uniforms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      backward: bool = False) -> Dict[str, torch.Tensor]:
+                      backward: bool = False, images=None) -> Dict[str, torch.Tensor]:
     """Stats over the batch's pairs (mean; ``max_*``: max).  ``uniforms``
-    [B, N0·corr_k] are each pair's sampling draws.  With ``backward`` each
-    pair's total / B is back-propagated as soon as it is computed."""
+    [B, N0·corr_k] are each pair's sampling draws; ``images`` carries the
+    pair-batch axis on every leaf.  With ``backward`` each pair's total / B
+    is back-propagated as soon as it is computed."""
     n_pairs = batch.points.shape[0]
     per_pair = []
     for i in range(n_pairs):
         stats = pair_loss(model, cfg, batch.points[i], batch.masks[i], batch.features[i],
                           batch.rot[i], batch.trans[i],
                           uniforms=None if uniforms is None else uniforms[i],
-                          generator=generator)
+                          generator=generator, images=_pair_images(images, i))
         if backward:
             (stats["total"] / n_pairs).backward()
         per_pair.append({k: v.detach() for k, v in stats.items()})
@@ -100,9 +115,12 @@ def _stats_over_pairs(model, cfg: Config, batch: PairBatch,
 
 def train_step(state: TrainState, cfg: Config, batch: PairBatch,
                uniforms: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               images=None) -> Dict[str, torch.Tensor]:
     """Loss, gradients and one optimizer update (skipped when a gradient is
-    not finite; ``state.step`` advances either way).  Returns the stats."""
+    not finite; ``state.step`` advances either way).  ``images``: the
+    batch's image dict, every leaf with the pair-batch axis first.  Returns
+    the stats."""
     if resolve_kpconv_impl(cfg.kpconv_impl) == "reduce":
         raise NotImplementedError(
             "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
@@ -110,7 +128,8 @@ def train_step(state: TrainState, cfg: Config, batch: PairBatch,
         )
     state.zero_grad()
     with torch.enable_grad():
-        stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator, backward=True)
+        stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator, backward=True,
+                                  images=images)
     state.apply_gradients()
     return stats
 
@@ -118,14 +137,17 @@ def train_step(state: TrainState, cfg: Config, batch: PairBatch,
 @torch.no_grad()
 def eval_step(state: TrainState, cfg: Config, batch: PairBatch,
               uniforms: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    return _stats_over_pairs(state.model, cfg, batch, uniforms, generator)
+              generator: Optional[torch.Generator] = None,
+              images=None) -> Dict[str, torch.Tensor]:
+    return _stats_over_pairs(state.model, cfg, batch, uniforms, generator, images=images)
 
 
 @torch.no_grad()
-def infer_step(state: TrainState, cfg: Config, batch: PairBatch) -> Dict[str, torch.Tensor]:
+def infer_step(state: TrainState, cfg: Config, batch: PairBatch,
+               images=None) -> Dict[str, torch.Tensor]:
     """Forward only: each output stacked over the pairs [B, ...] (the
     descriptor / score dumps of pose estimation)."""
     outs = [forward_pair(state.model, cfg, batch.points[i], batch.masks[i],
-                         batch.features[i])[0] for i in range(batch.points.shape[0])]
+                         batch.features[i], _pair_images(images, i))[0]
+            for i in range(batch.points.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

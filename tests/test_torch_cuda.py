@@ -182,7 +182,12 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
 
 
-@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+# Block 0 of the color model: C = in_feats_dim = 129 (a reduction of
+# K·C = 1,935, not a multiple of 4: tc_gemm's scalar-load path), D = 128.
+BLOCK0_IMAGES = [("linear", "sum", 129, 128)]
+
+
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES + BLOCK0_IMAGES)
 def test_k2_kernel_matches_plain(cuda, influence, aggregation, c, d):
     args = _conv_inputs(cuda, c, d)[:7]
     got_out, got_nn = kpconv_tiled(*args, 0.06, influence, aggregation)
@@ -196,7 +201,7 @@ def test_k2_kernel_matches_plain(cuda, influence, aggregation, c, d):
     assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("influence,aggregation,c,d", CASES)
+@pytest.mark.parametrize("influence,aggregation,c,d", CASES + BLOCK0_IMAGES)
 def test_k3_kernel_matches_plain(cuda, influence, aggregation, c, d):
     """K3's candidate-tile entry (with K4's scatter folded in) against K3's
     then K4's plain versions: dW, and ds unless ``need_ds`` is off."""
@@ -240,6 +245,61 @@ def test_k4_fused_scatter_matches_plain(cuda, c):
     unseen = torch.ones(sup.shape[0], dtype=torch.bool, device=cuda)
     unseen[row[valid]] = False
     assert not bool(got[unseen].any())
+
+
+@pytest.mark.parametrize("c", [1, 64, 129, 257])
+def test_k4_fused_scatter_matches_float64(cuda, c):
+    """K4's scatter inside K3's entry against the plain K3 then K4 in
+    float64: ds within 1e-5 of its largest entry (fp32 atomics, gW in
+    3xTF32)."""
+    q, sup, _, lidx, tiles, kp, _, _ = _conv_inputs(cuda, 4, 4, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    w = torch.randn(15, c, 24, device=cuda, generator=gen)
+    g = torch.randn(q.shape[0], 24, device=cuda, generator=gen)
+    weighted = torch.randn(q.shape[0], 15 * c, device=cuda, generator=gen)
+    _, got = kpconv_tiled_bwd(q, sup, lidx, tiles, kp, w, g, weighted, 0.06)
+    f64 = [t.double() for t in (q, sup)] + [lidx, tiles] + [t.double() for t in
+                                                            (kp, w, g, weighted)]
+    _, want = kpconv_tiled_bwd_plain(*f64, 0.06)
+    torch.cuda.synchronize()
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,denom", [(np.uint8, 255.0), (np.uint16, 1000.0)])
+def test_exact_div_on_cuda_equals_numpy(cuda, dtype, denom):
+    """The color branch's dequantization on the card, every value."""
+    from pcrcg_tpu_torch.models.lift import _exact_div
+
+    x = np.arange(np.iinfo(dtype).max + 1, dtype=dtype)
+    got = _exact_div(torch.from_numpy(x).to(cuda), denom).cpu().numpy()
+    np.testing.assert_array_equal(got, x.astype(np.float32) / np.float32(denom))
+
+
+def test_backbone_convolutions_run_in_ieee_fp32(cuda):
+    """With the process allowing TF32 for cuDNN and cuBLAS, the 2D backbone
+    still convolves and resizes in IEEE fp32: its output is bit for bit the
+    one with TF32 disallowed, within 1e-5 of the CPU's, and the process's
+    flags are as they were after the call."""
+    from pcrcg_tpu_torch.models.resunet import ResUNet
+
+    model = ResUNet(32, 18)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 64, 80, 3))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        model = model.to(cuda)
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            loose = model(x.to(cuda))
+            assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            strict = model(x.to(cuda))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(loose, strict)
+    assert float((strict.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("c", [3, 128])
