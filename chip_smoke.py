@@ -81,6 +81,25 @@ Phases, each printed as it completes:
 15. agree-images — 4 for the color model (ResNet-50 UNet, 120×160
                renders of the crop): transform RMSE <= 0.2 m, descriptors,
                and the lifted features within ``LIFT_AGREE_BOUND``.
+16. main     — ``python -m pcrcg_tpu_torch.main``'s ``main`` on a split in
+               the 3DMatch layout (``assets.py::write_indoor_fixture``, one
+               scene, 16 train and 2 val pairs, 240×320 color and depth PNGs,
+               poses, SuperGlue dumps) under ``configs/train/indoor.yaml``
+               changed only in its data paths, exp_dir, ``max_epoch: 1``,
+               ``init_mode: random``, ``verbose_freq: 1`` and
+               ``num_workers: 2``: the counters zeroed before it, K1-K5
+               launched; every logged loss finite; the epoch, best_loss and
+               best_recall checkpoints written.  Then a resume from the
+               epoch checkpoint (start epoch 1, every tensor equal to the
+               saved one), and the host and device ms of a training step
+               (an epoch of 16 steps timed, with the loader's waits; then
+               one profiled, with the host's launches and stream syncs).
+17. tester   — ``IndoorTester`` over a 4-pair test split of the fixture
+               against its gt folder: every pair scored, est.log parses,
+               recall, inlier ratios and FMR in [0, 1]; pairs/s.
+18. accuracy — ``python -m pcrcg_tpu_torch.accuracy --images --steps 20
+               --eval-every 10 --n-eval 2``: every step's loss finite, K1-K5
+               launched, the JSONL start / eval / final events well formed.
 
 Then it prints the card's ``name, power.limit``, one JSON line with every
 kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
@@ -97,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1557,6 +1577,214 @@ def phase_agree_train(tag="agree-train", **overrides):
     check(step_rank[0][0] <= 1.0, f"updates after two steps differ: {step_rank[0]}")
 
 
+# [main]'s train split: an epoch long enough that the loader's start
+# (its first batch built with nothing to overlap) does not rule the step
+# time.
+MAIN_TRAIN_PAIRS = 16
+
+
+def _fixture_config(repo, work):
+    """The fixture's splits and a YAML that differs from
+    configs/train/indoor.yaml only in data paths, exp_dir, max_epoch,
+    init_mode, verbose_freq and num_workers."""
+    import yaml
+    from pcrcg_tpu_torch.assets import write_indoor_fixture
+
+    with open(repo / "configs" / "train" / "indoor.yaml") as f:
+        raw = yaml.safe_load(f)
+    benchmark = raw["model"]["benchmark"]
+    t0 = time.perf_counter()
+    tr = write_indoor_fixture(work, MAIN_TRAIN_PAIRS, seed=1, images=True, split="train")
+    va = write_indoor_fixture(work, 2, seed=2, images=True, split="val")
+    te = write_indoor_fixture(work, 4, seed=3, images=True, split="test", info_name=benchmark)
+    n = MAIN_TRAIN_PAIRS + 6
+    print(f"  fixture: {n} pairs, {2 * n} fragments, {4 * n} images in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    raw["misc"].update(exp_dir=str(work / "exp"), verbose_freq=1)
+    raw["model"].update(root=tr["root"], img_path=tr["img_path"],
+                        superglue_matches_path=tr["matches"], init_mode="random")
+    raw["optimiser"]["max_epoch"] = 1
+    raw["dataset"].update(train_info=tr["info"], val_info=va["info"], num_workers=2)
+    path = work / "indoor.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path, te
+
+
+class _TimedLoader:
+    """A loader whose iteration records how long each batch kept the caller
+    waiting."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield item
+
+
+def phase_main(path):
+    """[main]: ``main.main`` trains one epoch of the fixture under the
+    color model's config; then a resume and the step times over an epoch
+    (the loader's start spread over MAIN_TRAIN_PAIRS steps), the loader's
+    waits, and the host's launches and syncs from a profile of the next
+    epoch.  Returns the resumed Trainer."""
+    import math
+    import torch
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch import main as tmain
+    from pcrcg_tpu_torch.config import load_config
+    from pcrcg_tpu_torch.profile import _device_profile
+    from pcrcg_tpu_torch.train.trainer import Trainer
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = tmain.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    exp = Path(trainer.cfg.exp_dir)
+    with open(exp / "scalars.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r[k] for r in logged for k in ("total", "circle_loss", "overlap_loss") if k in r]
+    files = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    print(f"[main] 1 epoch ({MAIN_TRAIN_PAIRS} train, 2 val pairs) in {wall:.1f} s including "
+          "start-up, launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items())
+          + f", {len(losses)} logged losses, checkpoints {files}", flush=True)
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+          f"[main] a kernel of the training path never launched: {launches}")
+    check(losses and all(math.isfinite(v) for v in losses), "[main] a logged loss is not finite")
+    check({"epoch_0.ckpt", "best_loss.ckpt", "best_recall.ckpt"} <= set(files),
+          f"[main] checkpoints missing: {files}")
+    check(trainer.state.step == MAIN_TRAIN_PAIRS,
+          f"[main] {trainer.state.step} steps, expected {MAIN_TRAIN_PAIRS}")
+
+    saved = torch.load(exp / "checkpoints" / "epoch_0.ckpt", map_location=trainer.device,
+                       weights_only=True)["state"]["model"]
+    cfg = load_config(str(path)).replace(pretrain=str(exp / "checkpoints" / "epoch_0.ckpt"),
+                                         exp_dir=str(exp.parent / "resumed"), max_epoch=3)
+    resumed = Trainer(cfg, tmain.build_datasets(cfg))
+    own = resumed.model.state_dict()
+    same = sum(torch.equal(own[k], v) for k, v in saved.items())
+    print(f"[main] resumed at epoch {resumed.start_epoch}, step {resumed.state.step}: "
+          f"{same}/{len(saved)} tensors equal to the checkpoint", flush=True)
+    check(resumed.start_epoch == 1 and resumed.state.step == MAIN_TRAIN_PAIRS,
+          "[main] resume position")
+    check(same == len(saved) == len(own), "[main] resumed tensors differ from the checkpoint")
+
+    steps = MAIN_TRAIN_PAIRS
+    timed = resumed.loaders["train"] = _TimedLoader(resumed.loaders["train"])
+    t0 = time.perf_counter()
+    resumed.run_epoch(1, "train")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    wait_ms = sum(timed.waits) / steps * 1e3
+    prof = _device_profile(lambda: resumed.run_epoch(2, "train"), 1)  # one epoch
+    per = {k: prof[k] / steps for k in ("device_busy_ms", "launches", "launch_host_ms", "syncs",
+                                        "sync_wait_ms")}
+    print(f"[main] train step: host {host_ms:.1f} ms (waiting on the loader {wait_ms:.1f}, "
+          f"its first batch {timed.waits[0] * 1e3:.1f}), device busy "
+          f"{per['device_busy_ms']:.1f} ms (share {prof['device_busy_share']:.3f}); "
+          f"per step {per['launches']:.0f} kernel launches ({per['launch_host_ms']:.1f} ms "
+          f"of host time) and {per['syncs']:.1f} stream syncs ({per['sync_wait_ms']:.2f} ms "
+          f"waiting); an epoch of {steps} steps timed, then one profiled", flush=True)
+    return resumed
+
+
+def phase_tester(cfg, model, te):
+    """[tester]: every pair of the fixture's test split through
+    ``IndoorTester``, scored against the split's gt."""
+    import numpy as np
+    import torch
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch.data.indoor import IndoorDataset
+    from pcrcg_tpu_torch.data.loader import PairLoader
+    from pcrcg_tpu_torch.eval.benchmark_3dmatch import read_trajectory
+    from pcrcg_tpu_torch.eval.tester import IndoorTester
+    from pcrcg_tpu_torch.profile import _device_profile
+
+    ds = IndoorDataset(te["info"], cfg, data_augmentation=False)
+    loader = PairLoader(ds, cfg.budgets.points[0], batch_size=1, num_threads=2,
+                        drop_last=False, pin_memory=True)
+    tester = IndoorTester(cfg, model, te["gt"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = tester.run(ds, loader, n_points=cfg.n_points)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    est = Path(res["est_folder"])
+    logs = sorted(est.glob("*/est.log"))
+    keys, traj = read_trajectory(str(logs[0])) if len(logs) == 1 else (None, None)
+    scores = {k: res[k] for k in ("inlier_ratio_wo_mutual", "inlier_ratio_w_mutual", "fmr_005",
+                                  "fmr_01", "fmr_02")}
+    scores["recall"] = res["benchmark"].weighted_recall
+    print(f"[tester] {res['n_pairs']} pairs in {wall:.2f} s ({res['n_pairs'] / wall:.3f} pairs/s, "
+          "the loader's reads included), launches " + " ".join(
+              f"{k} {v}" for k, v in launches.items()) + ", "
+          + ", ".join(f"{k} {v:.4f}" for k, v in scores.items()), flush=True)
+    prof = _device_profile(lambda: tester.run(ds, loader, n_points=cfg.n_points), 1)
+    print(f"[tester] profiled again: device busy {prof['device_busy_ms'] / 4:.1f} ms a pair "
+          f"(share {prof['device_busy_share']:.3f}), {prof['launches'] / 4:.0f} kernel launches "
+          f"and {prof['syncs'] / 4:.1f} stream syncs a pair ({prof['sync_wait_ms'] / 4:.2f} ms "
+          "waiting)", flush=True)
+    check(res["n_pairs"] == 4 and keys is not None and len(keys) == 4, "[tester] pairs missing")
+    check(bool(np.isfinite(traj).all()), "[tester] est.log holds a non-finite transform")
+    check(all(0.0 <= v <= 1.0 for v in scores.values()), "[tester] a score outside [0, 1]")
+    check(launches["K1"] > 0 and launches["K2"] > 0, f"[tester] K1 / K2 idle: {launches}")
+
+
+def phase_accuracy(work):
+    """[accuracy]: the accuracy-evidence loop, color model, 20 steps."""
+    import math
+    from pcrcg_tpu_torch import accuracy, kernels
+
+    totals = []
+    real = accuracy.train_step
+
+    def recording(*args, **kw):
+        stats = real(*args, **kw)
+        totals.append(stats["total"])
+        return stats
+
+    out = work / "accuracy.jsonl"
+    accuracy.train_step = recording
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        accuracy.main(["--images", "--steps", "20", "--eval-every", "10", "--n-eval", "2",
+                       "--out", str(out)])
+    finally:
+        accuracy.train_step = real
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    totals = [float(t) for t in totals]
+    with open(out) as f:
+        events = [json.loads(line) for line in f]
+    kinds = [(e["event"], e.get("step")) for e in events]
+    print(f"[accuracy] --images, 20 steps and 3 evals of 2 pairs in {wall:.1f} s, launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items())
+          + f", step losses {totals[0]:.4f} .. {totals[-1]:.4f}, events {kinds}", flush=True)
+    check(len(totals) == 20 and all(math.isfinite(t) for t in totals), "[accuracy] losses")
+    check(kinds == [("start", None), ("eval", 0), ("eval", 10), ("eval", 20), ("final", 20)],
+          f"[accuracy] events {kinds}")
+    check(all(len(e["rmse"]) == 2 and all(math.isfinite(r) for r in e["rmse"])
+              and 0.0 <= e["recall"] <= 1.0 for e in events[1:]), "[accuracy] eval records")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+          f"[accuracy] a kernel never launched: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1711,6 +1939,21 @@ def main() -> int:
         del state_i, images, batched
         torch.cuda.empty_cache()
         phase_agree("agree-images", images_hw=(120, 160))
+
+        # Training and evaluation as users run them, on a split in the
+        # 3DMatch layout; then the accuracy-evidence loop.
+        work = repo / "build" / "chip_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            path, te = _fixture_config(repo, work)
+            trainer = phase_main(path)
+            phase_tester(trainer.cfg, trainer.model, te)
+            del trainer
+            torch.cuda.empty_cache()
+            phase_accuracy(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

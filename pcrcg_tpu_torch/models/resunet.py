@@ -18,6 +18,7 @@ statistics and an fp32 output, as the JAX package's ``dtype`` does.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -106,13 +107,20 @@ def align_corners_matrix(n_in: int, n_out: int) -> torch.Tensor:
     return torch.from_numpy(m)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_matrix(n_in: int, n_out: int, device: torch.device, dtype) -> torch.Tensor:
+    """``align_corners_matrix`` on ``device``, copied there once: a copy from
+    host memory blocks the host until the device has caught up."""
+    return align_corners_matrix(n_in, n_out).to(device, dtype)
+
+
 def bilinear_resize(x: torch.Tensor, size) -> torch.Tensor:
     """x [..., H, W] -> [..., h, w], align_corners=True, as two separable
     interpolation products (over H, then over W) in the JAX package's
     order; ``F.interpolate`` computes the same function rounded otherwise."""
     h, w = size
-    mh = align_corners_matrix(x.shape[-2], h).to(x.device, x.dtype)  # [h, H]
-    mw = align_corners_matrix(x.shape[-1], w).to(x.device, x.dtype)  # [w, W]
+    mh = _device_matrix(x.shape[-2], h, x.device, x.dtype)  # [h, H]
+    mw = _device_matrix(x.shape[-1], w, x.device, x.dtype)  # [w, W]
     return (mh @ x) @ mw.T
 
 

@@ -17,6 +17,9 @@ Both results load with ``strict=True``.
 load_backbone2d`` / ``import_torch_resunet``: a reference torch ResNet or
 Res50UNet checkpoint (torchvision, pri3d, MoCo, DataParallel layouts)
 merged into a ``ResUNet`` by name and shape, with a report.
+``load_kpfcnn`` is the counterpart of ``torch_import.py::load_kpfcnn``: a
+reference KPFCNN checkpoint, whose key layout ``KPFCNN`` keeps, merged
+into the model by name and shape (the ``pretrain`` of the ``Trainer``).
 """
 from __future__ import annotations
 
@@ -178,3 +181,43 @@ def load_backbone2d(path: str, backbone: nn.Module) -> dict:
             ckpt = ckpt[key]
             break
     return import_backbone2d_state_dict(ckpt, backbone)
+
+
+def import_kpfcnn_state_dict(state_dict: Mapping, model: nn.Module) -> dict:
+    """Merge a reference-format torch KPFCNN state dict (the layout of
+    ``KPFCNN.state_dict()``, kernel points included) into ``model`` in
+    place, the reference's ``load_state_dict(strict=False)`` pretrain flow
+    (lib/trainer.py:163-184): a 'module.' prefix stripped, running
+    statistics and ``num_batches_tracked`` skipped, a tensor loaded where
+    its name exists with the same shape.  -> {loaded, skipped, errors}:
+    errors name checkpoint tensors that matched nothing and model tensors
+    the checkpoint did not hold."""
+    own = model.state_dict()
+    loaded, skipped, errors = [], [], []
+    with torch.no_grad():
+        for key, tensor in state_dict.items():
+            k = key[len("module."):] if key.startswith("module.") else key
+            if k.endswith("num_batches_tracked") or ".running_" in k:
+                skipped.append(key)
+                continue
+            value = torch.as_tensor(np.asarray(
+                tensor.detach().cpu() if hasattr(tensor, "detach") else tensor, np.float32))
+            if k not in own or tuple(value.shape) != tuple(own[k].shape):
+                errors.append(f"no match/shape for: {key}")
+                continue
+            own[k].copy_(value)
+            loaded.append(k)
+    errors.extend(f"not in checkpoint: {k}" for k in own if k not in set(loaded))
+    return {"loaded": len(loaded), "skipped": len(skipped), "errors": errors}
+
+
+def load_kpfcnn(path: str, model: nn.Module) -> dict:
+    """Load a reference torch KPFCNN checkpoint file (its state dict may sit
+    under 'state_dict', 'model' or 'model_state_dict') into ``model`` with
+    ``import_kpfcnn_state_dict``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("state_dict", "model", "model_state_dict"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return import_kpfcnn_state_dict(ckpt, model)

@@ -20,7 +20,9 @@ def pad_gather(x: torch.Tensor, idx: torch.Tensor, fill_value=0.0) -> torch.Tens
     valid = (idx >= 0) & (idx < n)
     rows = x[idx.clamp(0, max(n - 1, 0))]
     valid = valid.reshape(valid.shape + (1,) * (x.dim() - 1))
-    return torch.where(valid, rows, torch.as_tensor(fill_value, dtype=x.dtype, device=x.device))
+    # new_full fills on the device: a host scalar copied there would block
+    # the host until the device caught up.
+    return torch.where(valid, rows, x.new_full((), fill_value))
 
 
 def pad_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

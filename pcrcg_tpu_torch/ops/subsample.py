@@ -117,7 +117,10 @@ def grid_subsample(
     # One more segment takes the rows past the last output (dropped voxels
     # and pads), so the lengths cover every row.
     lengths = torch.cat([counts, (points.shape[0] - ends[-1:])])
-    sums = torch.segment_reduce(points[perm], "sum", lengths=lengths, axis=0)[:n_out]
+    # ``unsafe``: the lengths cover every row by construction, and the
+    # checks it skips read them back to the host (a sync on the card).
+    sums = torch.segment_reduce(points[perm], "sum", lengths=lengths, axis=0,
+                                unsafe=True)[:n_out]
     out_mask = counts > 0
     pooled = sums / counts.clamp_min(1).to(points.dtype)[:, None]
     pooled = torch.where(out_mask[:, None], pooled, PAD_COORD)

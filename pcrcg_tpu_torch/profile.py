@@ -125,7 +125,8 @@ def _train_stages(state, cfg, batch, images, gen, marks):
 
 
 def _device_profile(run, count):
-    """Device time by kernel over ``count`` calls of ``run``, per call."""
+    """Device time by kernel over ``count`` calls of ``run``, per call, and
+    the host's kernel launches and stream syncs (count and host ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -135,15 +136,23 @@ def _device_profile(run, count):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = {}
+    api = {"cudaLaunchKernel": [0, 0.0], "cudaStreamSynchronize": [0, 0.0]}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.device_time_total
+        elif ev.name in api:
+            api[ev.name][0] += 1
+            api[ev.name][1] += ev.cpu_time_total
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     return {
         "profiled_wall_ms": wall_us / count / 1e3,
         "device_busy_ms": busy_us / count / 1e3,
         "device_busy_share": busy_us / wall_us,
+        "launches": api["cudaLaunchKernel"][0] / count,
+        "launch_host_ms": api["cudaLaunchKernel"][1] / count / 1e3,
+        "syncs": api["cudaStreamSynchronize"][0] / count,
+        "sync_wait_ms": api["cudaStreamSynchronize"][1] / count / 1e3,
         "top_kernels_ms": [(name[:120], us / count / 1e3) for name, us in top],
     }
 

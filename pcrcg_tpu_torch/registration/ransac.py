@@ -134,3 +134,10 @@ def ransac_pose(
     fitness = best_inl / n_valid_f
     rmse = torch.sqrt(err / best_inl.clamp_min(1.0))
     return RansacResult(best_T, fitness, rmse)
+
+
+def to_homogeneous(transform: torch.Tensor) -> torch.Tensor:
+    """[3, 4] -> [4, 4]."""
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=transform.dtype,
+                          device=transform.device)
+    return torch.cat([transform, bottom])

@@ -23,7 +23,7 @@ backbone of ``PCRCG`` gets no decay and no momentum, as the JAX package's
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -69,6 +69,9 @@ class TrainState:
         update; returns whether the parameters moved.  Clears the grads."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         self.step += 1
+        # Read on the host: a training step's one sync on the card.  The
+        # host, dispatching the eager step, reaches it behind the device, so
+        # it waits next to nothing (PERF.md §5).
         finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         if not finite:
             self.zero_grad()
@@ -95,3 +98,18 @@ class TrainState:
         self.count += 1
         self.zero_grad()
         return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue exactly: the model's
+        state dict (parameters and buffers), the optimizer's, the counters
+        and the gradient accumulator of ``iter_size > 1``."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "count": self.count, "mini_step": self.mini_step,
+                "acc": self._acc}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step, self.count, self.mini_step = sd["step"], sd["count"], sd["mini_step"]
+        dev = self.params[0].device if self.params else None
+        self._acc = None if sd["acc"] is None else [a.to(dev) for a in sd["acc"]]
