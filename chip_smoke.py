@@ -100,6 +100,41 @@ Phases, each printed as it completes:
 18. accuracy — ``python -m pcrcg_tpu_torch.accuracy --images --steps 20
                --eval-every 10 --n-eval 2``: every step's loss finite, K1-K5
                launched, the JSONL start / eval / final events well formed.
+19. kitti    — configs/train/kitti.yaml (its data paths, exp_dir,
+               ``max_epoch: 1`` and ``num_workers: 2`` changed; every width
+               and budget as shipped) on a drive that
+               ``assets.py::write_kitti_fixture`` writes: 17 HDL-64E-like
+               scans of 120,000 rays, pairs 9.9 m apart, the ICP-refined GT
+               cached before anything is timed.  The pyramid of a test pair
+               drops no voxel; K1's and K2's calls in one ``register_pair``
+               and K3's / K5's (and the loss's K1) in one ``train_step`` on
+               an augmented pair are held against their plain versions as in
+               2; 5 on that pair (K5 3 a step, no voxel dropped); the device
+               ms of a pair and a step; ``main`` trains one epoch (4 steps,
+               then 4 val pairs: every step's loss terms finite, no voxel
+               dropped, K1-K5 launched, K5 3 a step, the batches' raw clouds
+               apart from the model input); ``KITTITester`` over the 4 test
+               pairs (every pair scored, RRE and RTE finite, recall in [0, 1],
+               pairs/s and device ms a pair).
+20. agree-train-kitti — 6 with configs/train/kitti.yaml's radii and heads
+               on a 2,048-point crop of an augmented train pair, the loss on
+               its raw clouds: the first pair whose crop is well conditioned
+               (one rounding unit in K2's outputs or in the weights moves the
+               CPU path's gradients and updates by at most a tenth of their
+               bounds; each pair's share printed).
+21. modelnet — configs/train/modelnet.yaml changed as in 19 (3 levels,
+               1,024 points, crops of 0.7) on ``assets.py::modelnet_shapes``
+               read through a subclass of ``ModelNetHdf`` (the card's
+               machine has no h5py): 2 and 5 as in 19 at the 3-level
+               topology (9 KPConvs, K5 for the 2 strided blocks; K1 idle:
+               1,024 points make 8 search tiles, no more than
+               search_m_tiles, so every search takes the tiled search's
+               dense fallback, as in the JAX package), the device
+               ms of a pair and a step, a ``main`` epoch (13 steps, 13 val
+               pairs), ``ModelnetTester`` over the 11 test pairs (every metric
+               finite, the chamfer on the batches' ``extras['points_raw']``).
+22. agree-modelnet — 4 at the 3-level topology (N0 = 1,024) on a ModelNet
+               test pair.
 
 Then it prints the card's ``name, power.limit``, one JSON line with every
 kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
@@ -380,7 +415,7 @@ def _chain_after_distances(d2, sel, k, r2, nq, ns, batch, tile, supa_tiles):
         torch.int32)
 
 
-def phase_k1(calls):
+def phase_k1(calls, tag="kernels"):
     """K1 on every recorded call (the 9 searches of a serving pyramid, the
     loss's 3 of a ``train_step``): idx and lidx equal to the plain chain
     (distances, stable sort, mapping, cutoff), the value mode bit for bit
@@ -459,7 +494,7 @@ def phase_k1(calls):
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
     if fused:
-        print(f"[kernels] K1 over {len(calls)} calls: idx and lidx equal to the plain chain, the "
+        print(f"[{tag}] K1 over {len(calls)} calls: idx and lidx equal to the plain chain, the "
               f"value mode equal to amin; kernel {res['ms']:.4f} ms, plain chain "
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})",
               flush=True)
@@ -799,7 +834,7 @@ def phase_k4_unfused(calls):
     return _scatter_phase("K4", calls, scatter_ds_feats, scatter_ds_feats_plain, library, count)
 
 
-def phase_k5(calls):
+def phase_k5(calls, tag="kernels"):
     import torch
     from pcrcg_tpu_torch.ops.kpconv_tiled import maxpool_bwd, maxpool_bwd_plain
 
@@ -830,7 +865,7 @@ def phase_k5(calls):
     real = sum(int((a[2].gather(1, a[1]) < a[3]).sum()) for a, _ in calls)
     total = sum(a[1].numel() for a, _ in calls)
     verdict = "no slower than" if res["ms"] <= res["library_ms"] else "slower than"
-    print(f"[kernels] K5 {res['ms']:.4f} ms over {len(calls)} calls: {verdict} its yardstick "
+    print(f"[{tag}] K5 {res['ms']:.4f} ms over {len(calls)} calls: {verdict} its yardstick "
           f"(index_add_ with its zero fill, {res['library_ms']:.4f} ms, over the {real / total:.3f}"
           f" of the entries with a real row); {res['bound_ms'] / res['ms']:.2f} of its bound "
           f"({res['bound_ms']:.4f} ms)", flush=True)
@@ -1258,11 +1293,13 @@ def phase_routes(batch, configs):
 LIFT_AGREE_BOUND = 1e-4
 
 
-def phase_agree(tag="agree", images_hw=None, **overrides):
+def phase_agree(tag="agree", images_hw=None, budgets=None, sample=None, **overrides):
     """CUDA path vs CPU plain path on a small crop, same weights, same draws
     (``overrides``: Config fields, the KPConv route).  With ``images_hw``
     (H, W): the color model (``PCRCG``, ResNet-50 UNet) on renders of the
-    crop at that size, and its lifted features compared too."""
+    crop at that size, and its lifted features compared too.  ``budgets``
+    and ``sample`` (a pair's sample dict) replace the 4-level budgets at
+    N0 = 2048 and the crop of the assets pair."""
     import numpy as np
     import torch
     from pcrcg_tpu_torch.assets import demo_cloud_pair
@@ -1271,19 +1308,22 @@ def phase_agree(tag="agree", images_hw=None, **overrides):
     from pcrcg_tpu_torch.eval.tester import register_pair
     from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
 
-    budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
-                      query_chunk=512, search_tile=128, search_m_tiles=4)
+    if budgets is None:
+        budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
+                          query_chunk=512, search_tile=128, search_m_tiles=4)
+    n0 = budgets.points[0]
     if images_hw is not None:
         overrides = dict(overrides, image_feature=True, in_feats_dim=129)
     cfg = tiny_test_config(budgets=budgets, **overrides)
-    src, tgt = demo_cloud_pair()
+    if sample is None:
+        src, tgt = demo_cloud_pair()
 
-    def crop(p, n):
-        d = ((p - np.median(p, 0)) ** 2).sum(1)
-        return p[np.argsort(d, kind="stable")[:n]]
+        def crop(p, n):
+            d = ((p - np.median(p, 0)) ** 2).sum(1)
+            return p[np.argsort(d, kind="stable")[:n]]
 
-    sample = dict(src_pcd=crop(src, 2048), tgt_pcd=crop(tgt, 2000), rot=np.eye(3),
-                  trans=np.zeros(3))
+        sample = dict(src_pcd=crop(src, 2048), tgt_pcd=crop(tgt, 2000), rot=np.eye(3),
+                      trans=np.zeros(3))
     images, init, kw, lifted = None, init_kpfcnn, {}, {}
     if images_hw is not None:
         from pcrcg_tpu_torch.assets import render_pair_images
@@ -1296,11 +1336,11 @@ def phase_agree(tag="agree", images_hw=None, **overrides):
         init = init_pcrcg
     n_points, iters, chunk = 512, 8192, 1024
     gen = torch.Generator().manual_seed(1)
-    uniforms = (torch.rand(2048, generator=gen), torch.rand(2048, generator=gen))
+    uniforms = (torch.rand(n0, generator=gen), torch.rand(n0, generator=gen))
     picks = torch.randint(0, n_points, (iters // chunk, chunk, 3), generator=gen)
     results = {}
     for dev in ("cpu", "cuda"):
-        batch = make_pair_batch([sample], 2048, in_feats_dim=cfg.in_feats_dim, device=dev)
+        batch = make_pair_batch([sample], n0, in_feats_dim=cfg.in_feats_dim, device=dev)
         model = init(cfg, seed=2, device=dev)
         if images is not None:
             kw = dict(images=images_to(images, dev))
@@ -1323,7 +1363,7 @@ def phase_agree(tag="agree", images_hw=None, **overrides):
     rmse = float(((move(rc["transform"]) - move(rg["transform"])) ** 2).sum(-1).mean().sqrt())
     fc = rc["outputs"]["feats_f"]
     fg = rg["outputs"]["feats_f"].cpu()
-    mask = make_pair_batch([sample], 2048).masks[0]
+    mask = make_pair_batch([sample], n0).masks[0]
     cos = (fc * fg).sum(-1)[mask]
     desc = float((fc - fg).abs().max())
     extra = ""
@@ -1333,7 +1373,8 @@ def phase_agree(tag="agree", images_hw=None, **overrides):
         extra = (f", lifted features max relative error {lift_err:.3e} (bound "
                  f"{LIFT_AGREE_BOUND:.0e}; images {images_hw[0]}x{images_hw[1]}, ResNet-"
                  f"{cfg.backbone2d_depth} UNet, {share:.3f} of the real points lifted)")
-    print(f"[{tag}] CUDA vs CPU plain path (N0=2048): transform RMSE {rmse:.3e} m, "
+    print(f"[{tag}] CUDA vs CPU plain path (N0={n0}, {budgets.num_levels} levels): transform "
+          f"RMSE {rmse:.3e} m, "
           f"descriptor cosine min {float(cos.min()):.7f} (max |d| {desc:.3e}), fitness "
           f"{float(rg['fitness']):.4f} vs {float(rc['fitness']):.4f}{extra}", flush=True)
     check(rmse <= 0.2, f"CUDA and CPU transforms differ: RMSE {rmse}")
@@ -1343,19 +1384,22 @@ def phase_agree(tag="agree", images_hw=None, **overrides):
 
 
 def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4", "K5"),
-                idle=(), images=None, frozen=None):
+                idle=(), images=None, frozen=None, per_step=None, n_kpconv=11,
+                overflow_free=False):
     """``train_step`` at full width (with ``images``, batched, the color
     model): one warm step, then 3 timed steps with the launch counters
     zeroed just before them; the kernels ``launched`` must have run, those
-    in ``idle`` not.  Every tensor of the state dict under the prefix
-    ``frozen`` (parameters and buffers) must be bit-identical after the
-    four steps."""
+    in ``idle`` not, and those of ``per_step`` exactly that many times a
+    step.  Every tensor of the state dict under the prefix ``frozen``
+    (parameters and buffers) must be bit-identical after the four steps.
+    The model has ``n_kpconv`` KPConv weights; with ``overflow_free`` no
+    step's pyramid may drop a voxel."""
     import torch
     from pcrcg_tpu_torch import kernels
     from pcrcg_tpu_torch.ops.neighbors import min_dist_sq, radius_sq
     from pcrcg_tpu_torch.train.step import train_step
 
-    pts, msk = batch.points[0], batch.masks[0]
+    pts, msk = batch.loss_points[0], batch.masks[0]
     warped = pts[0][msk[0]] @ batch.rot[0].T + batch.trans[0]
     share = float((min_dist_sq(warped, pts[1], msk[1]) <= radius_sq(cfg.overlap_radius))
                   .float().mean())
@@ -1382,10 +1426,11 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
-        totals = []
+        totals, overflows = [], []
         for _ in range(n_steps):
             stats = train_step(state, cfg, batch, generator=gen, **kw)
             totals.append(stats["total"])
+            overflows.append(stats["max_overflow"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1413,7 +1458,8 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
         f"{k} {float(v):.6f}" for k, v in sorted(stats.items())), flush=True)
     check(all(bool(torch.isfinite(t)) for t in totals), "train loss not finite")
     check(not bad, f"non-finite gradients: {bad[:5]}")
-    check(len(kp_weights) == 11 and not zero_kp, f"KPConv weights without a gradient: {zero_kp}")
+    check(len(kp_weights) == n_kpconv and not zero_kp,
+          f"KPConv weights without a gradient: {zero_kp}")
     check(all(len(grad_norms[n]) == n_steps for n in kp_weights), "a KPConv gradient is missing")
     if static:
         print(f"  unchanged in fp32 (update below the spacing, momentum non-zero): {static}",
@@ -1427,6 +1473,12 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
         check(len(kept) > 0 and not changed, f"frozen tensors changed: {changed[:5]}")
     check(all(launches[k] > 0 for k in launched), f"[{tag}] a kernel never launched: {launches}")
     check(all(launches[k] == 0 for k in idle), f"[{tag}] an off-route kernel ran: {launches}")
+    for key, n in (per_step or {}).items():
+        check(launches[key] == n * n_steps,
+              f"[{tag}] {key}: {launches[key]} launches, expected {n} a step")
+    if overflow_free:
+        check(max(float(v) for v in overflows) == 0.0,
+              f"[{tag}] the pyramid dropped voxels: max_overflow {overflows}")
     return launches
 
 
@@ -1497,9 +1549,95 @@ def phase_lift_stage(cfg, batch, model, images):
     check(share > 0.1, f"only {share} of the points lifted from an image")
 
 
-def phase_agree_train(tag="agree-train", **overrides):
+def _agree_train_config(**overrides):
+    """[agree-train*]'s Config: tiny widths at N0 = 2,048, both heads on
+    unless ``overrides`` say otherwise."""
+    from pcrcg_tpu_torch.config import Budgets, tiny_test_config
+
+    budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
+                      query_chunk=512, search_tile=128, search_m_tiles=4)
+    return tiny_test_config(budgets=budgets, **{"node_overlap": True, "quaternion": True,
+                                                **overrides})
+
+
+def _agree_train_draws(cfg):
+    """The loss's draws of [agree-train*]: one row for the gradient, two for
+    the SGD steps."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    return torch.rand(3, 1, cfg.budgets.points[0] * cfg.budgets.corr_k, generator=gen)
+
+
+def _rounding_sensitivity(sample, **overrides):
+    """How far one rounding unit moves the CPU path on ``sample`` under
+    [agree-train]'s Config, weights and draws: once every K2 output (the
+    KPConv sums) scaled by 1 + 1e-7·N(0, 1), fp32 rounding (K2 and its
+    plain version on the card differ by more: [kernels]' rel), once every
+    weight, as [agree-train]'s own perturbed run (the two paths' weights
+    differ so after an update).  Returns the worst
+    parameter's change as a share of [agree-train]'s bounds, the
+    gradient's and the two SGD steps' update's, the largest of the two
+    runs.  Where it is large, rounding alone moves the CPU path past the
+    bounds (a near-tied choice downstream flips), and the CUDA path cannot
+    be held to the CPU path there."""
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.train.state import TrainState
+    from pcrcg_tpu_torch.train.step import pair_loss, train_step
+
+    cfg = _agree_train_config(**overrides)
+    draws = _agree_train_draws(cfg)
+    batch = make_pair_batch([sample], cfg.budgets.points[0])
+    raw = None if batch.raw_points is None else batch.raw_points[0]
+    real = kt_mod.kpconv_tiled
+    noise = torch.Generator().manual_seed(5)
+
+    def rounded(*args, **kw):
+        out, *rest = real(*args, **kw)
+        return (out * (1.0 + 1e-7 * torch.randn(out.shape, generator=noise)), *rest)
+
+    runs = []
+    for fn, eps in ((real, 0.0), (rounded, 0.0), (real, 1e-7)):
+        kt_mod.kpconv_tiled = fn
+        try:
+            state = TrainState(cfg, init_kpfcnn(cfg, seed=2, device="cpu"), steps_per_epoch=1)
+            if eps:
+                weight_noise = torch.Generator().manual_seed(4)
+                with torch.no_grad():
+                    for p in state.model.parameters():
+                        p.mul_(1.0 + eps * torch.randn(p.shape, generator=weight_noise))
+            with torch.enable_grad():
+                pair_loss(state.model, cfg, batch.points[0], batch.masks[0], batch.features[0],
+                          batch.rot[0], batch.trans[0], uniforms=draws[0, 0],
+                          raw_points=raw)["total"].backward()
+            grads = {n: p.grad.double() for n, p in state.model.named_parameters()}
+            state.zero_grad()
+            start = {n: p.detach().double() for n, p in state.model.named_parameters()}
+            for u in draws[1:]:
+                train_step(state, cfg, batch, uniforms=u)
+            updates = {n: p.detach().double() - start[n]
+                       for n, p in state.model.named_parameters()}
+        finally:
+            kt_mod.kpconv_tiled = real
+        runs.append((grads, updates))
+
+    def share(got, want, rtol, floor_rtol):
+        floor = floor_rtol * max(float(w.norm()) for w in want.values())
+        return max(float((got[n] - w).norm()) / (rtol * float(w.norm()) + floor)
+                   for n, w in want.items())
+
+    (g0, u0), *perturbed = runs
+    return max(max(share(g, g0, 1e-3, 1e-6), share(u, u0, 1e-2, 1e-5)) for g, u in perturbed)
+
+
+def phase_agree_train(tag="agree-train", sample=None, **overrides):
     """CUDA path vs CPU plain path of the training slice on a small crop
-    (``overrides``: Config fields, the KPConv route),
+    (``overrides``: Config fields, the KPConv route, the heads, both on
+    unless overridden; ``sample``: a pair's sample dict in place of the
+    assets crop, its loss on the raw clouds when it has them),
     same weights, same draws: loss terms (relative 1e-4), each parameter's
     gradient (‖Δg‖ ≤ 1e-3·‖g‖ + 1e-6·max ‖g‖: atomics and cuBLAS sum in
     another order; the floor covers the biases whose gradient is zero in
@@ -1512,18 +1650,14 @@ def phase_agree_train(tag="agree-train", **overrides):
     relative and prints how far its updates land from the unperturbed
     ones under the same bound."""
     import torch
-    from pcrcg_tpu_torch.config import Budgets, tiny_test_config
     from pcrcg_tpu_torch.data.pair import make_pair_batch
     from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
     from pcrcg_tpu_torch.train.state import TrainState
     from pcrcg_tpu_torch.train.step import pair_loss, train_step
 
-    budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
-                      query_chunk=512, search_tile=128, search_m_tiles=4)
-    cfg = tiny_test_config(budgets=budgets, node_overlap=True, quaternion=True, **overrides)
-    sample = _overlap_crop(2048, 2000)
-    gen = torch.Generator().manual_seed(3)
-    draws = torch.rand(3, 1, 2048 * budgets.corr_k, generator=gen)
+    cfg = _agree_train_config(**overrides)
+    sample = _overlap_crop(2048, 2000) if sample is None else sample
+    draws = _agree_train_draws(cfg)
     res = {}
     for dev, eps in (("cpu", 0.0), ("cuda", 0.0), ("cpu", 1e-7)):
         batch = make_pair_batch([sample], 2048, device=dev)
@@ -1536,7 +1670,9 @@ def phase_agree_train(tag="agree-train", **overrides):
         with torch.enable_grad():
             stats = pair_loss(state.model, cfg, batch.points[0], batch.masks[0],
                               batch.features[0], batch.rot[0], batch.trans[0],
-                              uniforms=draws[0, 0].to(dev))
+                              uniforms=draws[0, 0].to(dev),
+                              raw_points=None if batch.raw_points is None
+                              else batch.raw_points[0])
             stats["total"].backward()
         grads = {n: p.grad.double().cpu() for n, p in state.model.named_parameters()}
         state.zero_grad()
@@ -1566,7 +1702,10 @@ def phase_agree_train(tag="agree-train", **overrides):
           + ", ".join(f"{t:.6f}" for t in tc) + "; worst share of the bound: gradients "
           + show(grad_rank) + "; two-step updates " + show(step_rank)
           + "; CPU from weights perturbed by 1e-7 " + show(noise_rank), flush=True)
-    print(f"[{tag}] CUDA vs CPU plain path (N0=2048, both heads): loss terms max "
+    loss_on = "raw clouds" if "raw_src_pcd" in sample else "model-input clouds"
+    heads = [h for h in ("node_overlap", "quaternion") if getattr(cfg, h)]
+    print(f"[{tag}] CUDA vs CPU plain path (N0=2048, heads {heads}, loss on the {loss_on}): "
+          "loss terms max "
           f"relative difference {stat_rel:.3e} (total {sg['total']:.6f} vs {sc['total']:.6f}, "
           f"circle {sg['circle_loss']:.6f}), gradients at {grad_rank[0][0]:.3f} and two-step "
           f"updates at {step_rank[0][0]:.3f} of their bounds (a 1e-7 weight perturbation "
@@ -1785,6 +1924,429 @@ def phase_accuracy(work):
           f"[accuracy] a kernel never launched: {launches}")
 
 
+def _epoch_losses(run):
+    """Run ``run()`` (an entry point that trains) with the Trainer's train
+    and eval steps recorded; returns (its result, every step's stats)."""
+    import pcrcg_tpu_torch.train.trainer as trainer_mod
+
+    real = {name: getattr(trainer_mod, name) for name in ("train_step", "eval_step")}
+    stats = []
+
+    def recorder(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            stats.append(out)
+            return out
+        return wrapped
+
+    for name, fn in real.items():
+        setattr(trainer_mod, name, recorder(fn))
+    try:
+        result = run()
+    finally:
+        for name, fn in real.items():
+            setattr(trainer_mod, name, fn)
+    return result, [{k: float(v) for k, v in s.items()} for s in stats]
+
+
+def _serving_calls(cfg, batch, model, **reg_kw):
+    """K1's and K2's calls in one ``register_pair`` of ``batch``'s pair."""
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.eval.tester import register_pair
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with recording_k1([(pyramid_mod, "radius_search_tiled_batch")]) as k1_calls:
+        calls = record_calls(lambda: register_pair(model, cfg, batch.points[0], batch.masks[0],
+                                                   batch.features[0], gen, **reg_kw),
+                             {"K2": (kt_mod, "kpconv_tiled")})
+    return k1_calls, calls["K2"]
+
+
+def _training_calls(cfg, batch, state):
+    """The loss's K1 calls and K3's / K5's in one ``train_step``."""
+    import torch
+    import pcrcg_tpu_torch.losses as losses_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with recording_k1([(losses_mod, "min_dist_sq_tiled"),
+                       (losses_mod, "radius_search_tiled")]) as k1_loss:
+        calls = record_backward_inputs(cfg, batch, state, gen)
+    return k1_loss, calls
+
+
+def _device_ms(tag, cfg, batch, model, state, reg_kw):
+    """Device busy ms of one pair (``register_pair``, 3 profiled) and of one
+    training step (2 profiled), after a warm call of each."""
+    import torch
+    from pcrcg_tpu_torch.eval.tester import register_pair
+    from pcrcg_tpu_torch.profile import _device_profile
+    from pcrcg_tpu_torch.train.step import train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def pair():
+        register_pair(model, cfg, batch.points[0], batch.masks[0], batch.features[0], gen,
+                      **reg_kw)
+
+    def step():
+        train_step(state, cfg, batch, generator=gen)
+
+    out = {}
+    for name, fn, count in (("pair", pair, 3), ("step", step, 2)):
+        fn()
+        prof = _device_profile(fn, count)
+        out[name] = prof["device_busy_ms"]
+        print(f"[{tag}] {name}: device busy {prof['device_busy_ms']:.2f} ms (share "
+              f"{prof['device_busy_share']:.3f} of {prof['profiled_wall_ms']:.1f} ms profiled), "
+              f"{prof['launches']:.0f} launches and {prof['syncs']:.1f} stream syncs a {name}",
+              flush=True)
+    return out
+
+
+def _epoch_checks(tag, path, trainer, stats, launches, n_train, expect):
+    """[kitti] / [modelnet]'s checks of a ``main`` epoch: every train and
+    val step's loss terms finite, no voxel dropped, the steps counted, K2-K5
+    launched and ``expect``'s kernels exactly that many times."""
+    import math
+
+    bad = [s for s in stats if not all(math.isfinite(v) for v in s.values())]
+    overflow = max(s["max_overflow"] for s in stats)
+    print(f"[{tag}] main --config {path.name}: {trainer.state.step} train steps and "
+          f"{len(stats) - trainer.state.step} val steps, launches "
+          + " ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; totals {min(s['total'] for s in stats):.4f} .. "
+          f"{max(s['total'] for s in stats):.4f}, max_overflow {overflow:g}", flush=True)
+    check(trainer.state.step == n_train >= 4, f"[{tag}] {trainer.state.step} train steps")
+    check(not bad, f"[{tag}] a step's loss terms are not finite: {bad[:1]}")
+    check(overflow == 0.0, f"[{tag}] the pyramid dropped voxels: max_overflow {overflow}")
+    check(all(launches[k] > 0 for k in ("K2", "K3", "K4", "K5")),
+          f"[{tag}] a kernel of the training path never launched: {launches}")
+    for key, n in expect.items():
+        check(launches[key] == n, f"[{tag}] {key}: {launches[key]} launches, expected {n}")
+
+
+# [kitti]'s drive: frames 3.3 m apart, paired (0, 3), (4, 7), (8, 11),
+# (12, 15): a Trainer epoch of 4 steps, 4 val and 4 test pairs.
+KITTI_FRAMES = 17
+
+
+def _crop_around_midpoint(sample, n):
+    """The n raw points of each cloud nearest to the midpoint between the
+    two scanners, with the same rows of the model-input clouds."""
+    import numpy as np
+
+    rot, trans = sample["rot"].astype(np.float64), sample["trans"].astype(np.float64)
+    c_src = -0.5 * rot.T @ trans
+    out = dict(rot=sample["rot"], trans=sample["trans"])
+    for cloud, c in (("src", c_src), ("tgt", rot @ c_src + trans)):
+        raw = sample[f"raw_{cloud}_pcd"]
+        rows = np.argsort(((raw - c) ** 2).sum(1), kind="stable")[:n]
+        out[f"{cloud}_pcd"] = sample[f"{cloud}_pcd"][rows]
+        out[f"raw_{cloud}_pcd"] = raw[rows]
+    return out
+
+
+def phase_kitti(repo, work):
+    """[kitti] and [agree-train-kitti]: configs/train/kitti.yaml (its data
+    paths, exp_dir, max_epoch and num_workers changed) on a synthetic drive
+    (``assets.py::write_kitti_fixture``: 17 HDL-64E-like scans of 120,000
+    rays).  -> the device ms of a pair and a step."""
+    import contextlib
+    import numpy as np
+    import torch
+    import yaml
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch import main as tmain
+    from pcrcg_tpu_torch.assets import write_kitti_fixture
+    from pcrcg_tpu_torch.config import load_config
+    from pcrcg_tpu_torch.data.loader import PairLoader
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.eval.tester import KITTITester
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+    from pcrcg_tpu_torch.profile import _device_profile
+    from pcrcg_tpu_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    write_kitti_fixture(work / "kitti", KITTI_FRAMES, seed=0)
+    lists = work / "configs" / "kitti"
+    lists.mkdir(parents=True)
+    for split in ("train", "val", "test"):
+        (lists / f"{split}_kitti.txt").write_text("0\n")
+    with open(repo / "configs" / "train" / "kitti.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["misc"]["exp_dir"] = str(work / "exp_kitti")
+    raw["model"]["root"] = str(work / "kitti")
+    raw["optimiser"]["max_epoch"] = 1
+    raw["dataset"]["num_workers"] = 2
+    path = work / "kitti.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    print(f"  fixture: {KITTI_FRAMES} scans in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # KITTIDataset reads configs/kitti/<split>_kitti.txt from the working
+    # directory, as the JAX package's does.
+    with contextlib.chdir(work):
+        cfg = load_config(str(path))
+        n0 = cfg.budgets.points[0]
+        train_ds = tmain.build_datasets(cfg)["train"]
+        test_ds = tmain.build_datasets(cfg.replace(mode="test"))["test"]
+        # The ICP-refined GT of every pair, cached under <root>/icp before
+        # anything is timed (the val and test splits share the drive).
+        t0 = time.perf_counter()
+        test_samples = [test_ds.get(i) for i in range(len(test_ds))]
+        rng = np.random.default_rng(0)
+        train_samples = [train_ds.get(i, rng) for i in range(len(train_ds))]
+        print(f"  ICP cache warmed for {len(test_ds)} pairs in {time.perf_counter() - t0:.1f} s;"
+              " level 0 after the 0.3 m voxel: " + ", ".join(
+                  f"{len(s['src_pcd'])}/{len(s['tgt_pcd'])}" for s in test_samples), flush=True)
+        check(len(train_ds) == len(test_ds) == 4, f"[kitti] {len(test_ds)} pairs, expected 4")
+
+        batch = make_pair_batch(test_samples[:1], n0, device="cuda")
+        model = init_kpfcnn(cfg, seed=0, device="cuda")
+        with torch.no_grad():
+            pyr, overflow = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0],
+                                              with_overflow=True)
+        print(f"[kitti] pyramid of a test pair: points a level "
+              + " ".join(str(m.sum(1).tolist()) for m in pyr.masks)
+              + f" (budgets {list(cfg.budgets.points)}), overflow {overflow.tolist()}", flush=True)
+        check(int(overflow.max()) <= 0, f"[kitti] the pyramid drops voxels: {overflow.tolist()}")
+        reg_kw = dict(distance_threshold=0.3, ransac_n=4)
+        k1_calls, k2_calls = _serving_calls(cfg, batch, model, **reg_kw)
+        tbatch = make_pair_batch(train_samples[:1], n0, device="cuda")
+        check(tbatch.raw_points is not None
+              and not torch.allclose(tbatch.raw_points, tbatch.points, atol=0.5),
+              "[kitti] the train batch has no raw clouds apart from the model input")
+        state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+        k1_loss, calls = _training_calls(cfg, tbatch, state)
+        print(f"[kitti] recorded {len(k1_calls)} K1 and {len(k2_calls)} K2 calls in one "
+              f"register_pair, the loss's {len(k1_loss)} K1, {len(calls['K3'])} K3 and "
+              f"{len(calls['K5'])} K5 calls in one train_step", flush=True)
+        check(len(k1_calls) == 9 and len(k1_loss) == 3 and len(calls["K5"]) == 3,
+              "[kitti] unexpected call counts")
+        phase_k1(k1_calls + k1_loss, tag="kitti")
+        phase_k2(k2_calls, tag="kitti")
+        del k1_calls, k1_loss, k2_calls
+        phase_k3_k4(calls["K3"], tag="kitti")
+        phase_k5(calls["K5"], tag="kitti")
+        del calls
+        torch.cuda.empty_cache()
+        phase_train(cfg, tbatch, state, "kitti-train", idle=("K6", "K7", "K8"),
+                    per_step={"K5": 3}, overflow_free=True)
+        device_ms = _device_ms("kitti", cfg, tbatch, model, state, reg_kw)
+        del state, model
+        torch.cuda.empty_cache()
+
+        kernels.reset_launches()
+        trainer, stats = _epoch_losses(lambda: tmain.main(["--config", str(path)]))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        _epoch_checks("kitti", path, trainer, stats, launches, len(train_ds),
+                      {"K5": 3 * len(train_ds)})
+        check(launches["K1"] > 0, f"[kitti] K1 never launched: {launches}")
+        first, _ = next(iter(trainer.loaders["train"]))
+        check(first.raw_points is not None
+              and not torch.allclose(first.raw_points, first.points, atol=0.5),
+              "[kitti] the Trainer's batches carry no raw clouds apart from the model input")
+
+        loader = PairLoader(test_ds, n0, batch_size=1, num_threads=2, drop_last=False,
+                            pin_memory=True)
+        tester = KITTITester(cfg, trainer.model)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = tester.run(loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        prof = _device_profile(lambda: tester.run(loader), 1)
+        n = res["n_pairs"]
+        print(f"[kitti] KITTITester: {n} pairs in {wall:.2f} s ({n / wall:.3f} pairs/s, the ICP "
+              f"cache warm, the loader's reads included), device busy "
+              f"{prof['device_busy_ms'] / n:.1f} ms a pair; recall "
+              f"{res['registration_recall']:.4f}, RRE {np.round(res['rre'], 3).tolist()} deg, "
+              f"RTE {np.round(res['rte'], 3).tolist()} m; launches "
+              + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+        check(n == len(test_ds), f"[kitti] {n} of {len(test_ds)} pairs scored")
+        check(bool(np.isfinite(res["rre"]).all() and np.isfinite(res["rte"]).all()),
+              "[kitti] a non-finite RRE or RTE")
+        check(0.0 <= res["registration_recall"] <= 1.0, "[kitti] recall outside [0, 1]")
+        check(launches["K1"] > 0 and launches["K2"] > 0, f"[kitti] K1 / K2 idle: {launches}")
+        del trainer, tester
+        torch.cuda.empty_cache()
+
+        # The radii and heads of configs/train/kitti.yaml (no node-overlap
+        # or pose head), on the first train pair whose crop is well
+        # conditioned: where one rounding unit in K2's outputs or in the
+        # weights already moves the CPU path's gradients or updates past a
+        # tenth of their bounds, the CUDA path (which rounds otherwise)
+        # cannot be held to it.
+        kitti_cfg = dict(dataset="kitti", **{k: getattr(cfg, k) for k in (
+            "first_subsampling_dl", "pos_radius", "safe_radius", "overlap_radius",
+            "matchability_radius", "node_overlap", "quaternion")})
+        shares = []
+        for s in train_samples:
+            crop = _crop_around_midpoint(s, 2048)
+            shares.append(_rounding_sensitivity(crop, **kitti_cfg))
+            if shares[-1] <= 0.1:
+                break
+        print(f"[agree-train-kitti] train pairs' crops, one rounding unit in K2's outputs or "
+              "the weights moves "
+              f"the CPU path's gradients or updates by {[round(v, 3) for v in shares]} of their "
+              f"bounds; held on pair {len(shares) - 1}", flush=True)
+        check(shares[-1] <= 0.1, "[agree-train-kitti] no train pair's crop is well conditioned")
+        phase_agree_train("agree-train-kitti", sample=crop, **kitti_cfg)
+    return device_ms
+
+
+# [modelnet]'s shards: 24 shapes each, shape i of category (3 i) mod 40 in
+# configs/modelnet/modelnet40_all.txt's order: 13 of each shard's in half1
+# (the train split of the train shard, the val split of the test shard),
+# 11 in half2 (the test split of the test shard).
+MODELNET_SHAPES = 24
+
+
+def phase_modelnet(repo, work):
+    """[modelnet] and [agree-modelnet]: configs/train/modelnet.yaml (its data
+    paths, exp_dir, max_epoch and num_workers changed: 3 levels, 1,024
+    points, crops of 0.7) on ``assets.py::modelnet_shapes``.  The card's
+    machine has no h5py: ``ModelNetHdf`` reads its shards through a
+    subclass here whose ``_read_h5`` gives the shapes.  -> the device ms of
+    a pair and a step."""
+    import numpy as np
+    import torch
+    import yaml
+    import pcrcg_tpu_torch.data.modelnet as mn_mod
+    import pcrcg_tpu_torch.eval.modelnet_metrics as mm_mod
+    from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch import main as tmain
+    from pcrcg_tpu_torch.assets import modelnet_shapes
+    from pcrcg_tpu_torch.config import Budgets, load_config
+    from pcrcg_tpu_torch.data.loader import PairLoader
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.train.state import TrainState
+
+    class ShapesHdf(mn_mod.ModelNetHdf):
+        """``ModelNetHdf`` over ``modelnet_shapes``: each shard is
+        MODELNET_SHAPES shapes (seed 0 for the train shard, 1 for the test
+        shard), categories filtered as the HDF5 reader filters them."""
+
+        @staticmethod
+        def _read_h5(files, categories):
+            data, labels = [], []
+            for fname in files:
+                d = modelnet_shapes(MODELNET_SHAPES, 2048, seed=int("test" in Path(fname).name))
+                lab = (3 * np.arange(MODELNET_SHAPES)) % 40
+                keep = np.isin(lab, categories) if categories is not None else lab >= 0
+                data.append(d[keep])
+                labels.append(lab[keep])
+            return np.concatenate(data), np.concatenate(labels)
+
+    root = work / "modelnet"
+    root.mkdir()
+    (root / "shape_names.txt").write_text(
+        (repo / "configs" / "modelnet" / "modelnet40_all.txt").read_text())
+    for subset in ("train", "test"):
+        (root / f"{subset}_files.txt").write_text(
+            f"data/modelnet40_ply_hdf5_2048/ply_data_{subset}0.h5\n")
+    with open(repo / "configs" / "train" / "modelnet.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["misc"]["exp_dir"] = str(work / "exp_modelnet")
+    raw["model"]["root"] = str(root)
+    for split in ("train", "val", "test"):  # the shipped category lists, wherever this runs
+        key = f"{split}_categoryfile"
+        raw["dataset"][key] = str(repo / raw["dataset"][key])
+    raw["optimiser"]["max_epoch"] = 1
+    raw["dataset"]["num_workers"] = 2
+    path = work / "modelnet.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+
+    real = mn_mod.ModelNetHdf
+    mn_mod.ModelNetHdf = ShapesHdf
+    try:
+        cfg = load_config(str(path))
+        n0 = cfg.budgets.points[0]
+        train_ds = tmain.build_datasets(cfg)["train"]
+        test_ds = tmain.build_datasets(cfg.replace(mode="test"))["test"]
+        np.random.seed(0)  # the train chain draws its per-sample seeds here
+        sample = train_ds[0]
+        check(cfg.num_layers == 3 and cfg.architecture.count("resnetb_strided") == 2,
+              "configs/train/modelnet.yaml is not the 3-level topology")
+        batch = make_pair_batch([sample], n0, device="cuda")
+        model = init_kpfcnn(cfg, seed=0, device="cuda")
+        reg_kw = dict(n_points=450, distance_threshold=0.02, ransac_n=3)
+        k1_calls, k2_calls = _serving_calls(cfg, batch, model, **reg_kw)
+        state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+        k1_loss, calls = _training_calls(cfg, batch, state)
+        print(f"[modelnet] {len(train_ds)} train, {len(test_ds)} test pairs of "
+              f"{len(sample['src_pcd'])}/{len(sample['tgt_pcd'])} points; recorded "
+              f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls in one register_pair, the "
+              f"loss's {len(k1_loss)} K1, {len(calls['K3'])} K3 and {len(calls['K5'])} K5 calls "
+              "in one train_step", flush=True)
+        check(len(calls["K5"]) == 2 and len(calls["K3"]) == 9,
+              "[modelnet] K5 must run for the 2 strided blocks, K3 for the 9 KPConvs")
+        # 1,024 points make 8 search tiles of 128, no more than
+        # search_m_tiles (12): every search takes the tiled search's dense
+        # fallback, in the JAX package too, so K1 (its pruned route) idles.
+        check(not k1_calls and not k1_loss, "[modelnet] K1 ran: the search tiles were pruned")
+        phase_k2(k2_calls, tag="modelnet", shapes=((1, 128), (64, 64), (128, 128), (256, 256)))
+        phase_k3_k4(calls["K3"], tag="modelnet")
+        phase_k5(calls["K5"], tag="modelnet")
+        del k1_calls, k1_loss, k2_calls, calls
+        phase_train(cfg, batch, state, "modelnet-train", launched=("K2", "K3", "K4", "K5"),
+                    idle=("K1", "K6", "K7", "K8"),
+                    per_step={"K5": 2}, n_kpconv=9, overflow_free=True)
+        device_ms = _device_ms("modelnet", cfg, batch, model, state, reg_kw)
+        del state, model
+        torch.cuda.empty_cache()
+
+        kernels.reset_launches()
+        trainer, stats = _epoch_losses(lambda: tmain.main(["--config", str(path)]))
+        torch.cuda.synchronize()
+        _epoch_checks("modelnet", path, trainer, stats, dict(kernels.LAUNCHES), len(train_ds),
+                      {"K1": 0, "K5": 2 * len(train_ds)})
+
+        items = list(PairLoader(test_ds, n0, batch_size=1, num_threads=2, drop_last=False,
+                                pin_memory=True))
+        seen = []
+        real_metrics = mm_mod.compute_metrics
+        mm_mod.compute_metrics = lambda *a: seen.append(a[2]) or real_metrics(*a)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            summary = mm_mod.ModelnetTester(cfg, trainer.model).run(items)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            mm_mod.compute_metrics = real_metrics
+        launches = dict(kernels.LAUNCHES)
+        n = summary.pop("n_pairs")
+        raws = np.stack([b.extras["points_raw"][0].numpy() for b, _ in items])
+        print(f"[modelnet] ModelnetTester: {n} pairs in {wall:.2f} s ({n / wall:.3f} pairs/s), "
+              + ", ".join(f"{k} {v:.4f}" for k, v in summary.items())
+              + "; launches " + " ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+        check(n == len(test_ds) >= 8, f"[modelnet] {n} of {len(test_ds)} pairs scored")
+        check(all(np.isfinite(v) for v in summary.values()), "[modelnet] a non-finite metric")
+        check(len(seen) == 1 and np.array_equal(seen[0], raws),
+              "[modelnet] the chamfer did not take the batches' extras['points_raw']")
+        check(launches["K1"] == 0 and launches["K2"] > 0,
+              f"[modelnet] K1 ran or K2 idled: {launches}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        np.random.seed(1)
+        phase_agree("agree-modelnet", budgets=Budgets(
+            points=(1024, 512, 256), neighbors=(40,) * 3, corr_k=8, query_chunk=512,
+            search_tile=128, search_m_tiles=4), sample=test_ds[0], dataset="modelnet",
+            first_subsampling_dl=cfg.first_subsampling_dl)
+    finally:
+        mn_mod.ModelNetHdf = real
+    return device_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -1952,6 +2514,8 @@ def main() -> int:
             del trainer
             torch.cuda.empty_cache()
             phase_accuracy(work)
+            kitti_ms = phase_kitti(repo, work)
+            modelnet_ms = phase_modelnet(repo, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     except SmokeFailure as exc:
@@ -1975,7 +2539,9 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))
-    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; device busy ms a pair / a step: KITTI "
+          f"{kitti_ms['pair']:.2f} / {kitti_ms['step']:.2f}, ModelNet {modelnet_ms['pair']:.2f} / "
+          f"{modelnet_ms['step']:.2f}", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

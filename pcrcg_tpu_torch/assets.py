@@ -289,3 +289,188 @@ def write_indoor_fixture(root, n_pairs: int, seed: int = 0, images: bool = False
         pickle.dump(infos, f)
     return {"root": str(data), "info": str(info_path), "gt": str(root / f"gt_{split}"),
             "img_path": str(img_root), "matches": str(matches)}
+
+
+# The HDL-64E's 64 lasers: the upper block of 32 from +2 to -8.33 deg in
+# 1/3 deg steps, the lower block of 32 from -8.83 to -24.33 deg in 1/2 deg
+# steps, mounted 1.73 m above the road (KITTI's Velodyne).  A scan keeps
+# the returns within 30 m: the coarse budgets of configs/train/kitti.yaml
+# (2,048 points at the 1.2 m level, 640 at 2.4 m) hold such a scan under
+# the dataset's augmentation (any rotation, scale up to 1.2) with ~25 %
+# to spare; with returns out to 120 m the 2.4 m level holds ~740 voxels at
+# scale 1.2 before any rotation.
+_HDL64_ELEVATIONS = np.deg2rad(np.concatenate([2.0 - np.arange(32) / 3.0,
+                                               -8.83 - 0.5 * np.arange(32)]))
+_LIDAR_HEIGHT = 1.73
+_LIDAR_RANGE = 30.0
+# The drive's frames are 3.3 m apart, so the D3Feat rule pairs frames 9.9 m
+# apart (its limit is 10 m).
+_FRAME_SPACING = 3.3
+# Foliage: a ray enters a canopy and returns after an exponential depth.
+_FOLIAGE_DEPTH = 0.5
+
+
+def _street_boxes(rng, x_lo: float, x_hi: float, half_width: float):
+    """Axis-aligned boxes along a straight street on the x axis, as (min and
+    max corners [n, 2, 3], foliage flags [n]): building facades on both
+    sides (8-20 m long, set back 0-2 m, 6-15 m high), parked cars, poles
+    and trees (a trunk under a foliage crown) at random places."""
+    boxes, foliage = [], []
+
+    def add(lo, hi, leaves=False):
+        boxes.append((lo, hi))
+        foliage.append(leaves)
+
+    for side in (-1.0, 1.0):
+        x = x_lo
+        while x < x_hi:
+            length = rng.uniform(8.0, 20.0)
+            y0 = half_width + rng.uniform(0.0, 2.0)
+            y = (y0, y0 + 10.0) if side > 0 else (-y0 - 10.0, -y0)
+            add((x, y[0], 0.0), (x + length - rng.uniform(0.0, 3.0), y[1],
+                                 rng.uniform(6.0, 15.0)))
+            x += length
+        x = x_lo + rng.uniform(0.0, 10.0)
+        while x < x_hi:  # parked cars
+            y = side * (half_width - 1.6)
+            add((x, y - 0.9, 0.0), (x + 4.5, y + 0.9, 1.5))
+            x += 4.5 + rng.uniform(1.0, 25.0)
+        x = x_lo + rng.uniform(0.0, 15.0)
+        while x < x_hi:  # poles
+            y = side * (half_width - 0.4)
+            add((x, y - 0.15, 0.0), (x + 0.3, y + 0.15, rng.uniform(4.0, 8.0)))
+            x += rng.uniform(10.0, 30.0)
+        x = x_lo + rng.uniform(0.0, 10.0)
+        while x < x_hi:  # trees
+            y, r = side * (half_width - 0.8), rng.uniform(1.5, 3.0)
+            add((x - 0.2, y - 0.2, 0.0), (x + 0.2, y + 0.2, 3.0))
+            add((x - r, y - r, 2.0), (x + r, y + r, rng.uniform(5.0, 9.0)), leaves=True)
+            x += rng.uniform(5.0, 12.0)
+        x = x_lo + rng.uniform(0.0, 5.0)
+        while x < x_hi:  # hedges in front of the facades
+            y, length = side * (half_width - 0.3), rng.uniform(3.0, 12.0)
+            add((x, y - 0.5, 0.0), (x + length, y + 0.5, rng.uniform(0.8, 1.5)), leaves=True)
+            x += length + rng.uniform(1.0, 6.0)
+    return np.asarray(boxes, np.float64), np.asarray(foliage)
+
+
+def _cast_rays(origin: np.ndarray, dirs: np.ndarray, boxes, rng) -> np.ndarray:
+    """Distance along each unit ray [n, 3] from ``origin`` to its return: the
+    nearest of the road plane z = 0 and the boxes (slab test; into a
+    foliage box by an exponential depth); inf where nothing returns within
+    ``_LIDAR_RANGE``."""
+    corners, foliage = boxes
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_best = np.where(dirs[:, 2] < 0, -origin[2] / dirs[:, 2], np.inf)
+        near = np.abs(corners[:, 0, 0] - origin[0]) < _LIDAR_RANGE + 20.0
+        for (lo, hi), leaves in zip(corners[near], foliage[near]):
+            t1 = (lo - origin) / dirs
+            t2 = (hi - origin) / dirs
+            t_in = np.nanmax(np.minimum(t1, t2), axis=1)
+            t_out = np.nanmin(np.maximum(t1, t2), axis=1)
+            hit = (t_in <= t_out) & (t_in > 0)
+            if leaves:
+                t_in = np.minimum(t_in + rng.exponential(_FOLIAGE_DEPTH, len(dirs)), t_out)
+            t_best = np.where(hit & (t_in < t_best), t_in, t_best)
+    return np.where(t_best <= _LIDAR_RANGE, t_best, np.inf)
+
+
+def write_kitti_fixture(root, n_frames: int, seed: int = 0,
+                        points_per_scan: int = 120_000) -> dict:
+    """Drive 0 of ``n_frames`` LiDAR scans in the KITTI-odometry layout, for
+    tests and smoke runs.  Under ``root``:
+
+    * ``dataset/sequences/00/velodyne/<t:06d>.bin``: float32 [n, 4]
+      (x, y, z, reflectance) in the scanner's frame;
+    * ``dataset/poses/00.txt``: each frame's camera-0 pose (camera
+      to world, 3 x 4 row-major), the scanner's pose composed with the
+      inverse of ``data/kitti.py::velo2cam``.
+
+    The scene, drawn from ``seed``, is a straight street along x (road at
+    z = 0, facades 6-9 m from the centre line) with buildings, parked cars,
+    poles, trees and hedges.  Each scan casts ``points_per_scan`` rays in
+    the 64 rings of an HDL-64E 1.73 m above the road and keeps those that
+    return within 30 m (2 cm range noise).  The scanner drives 3.3 m a
+    frame with a small yaw and sway, so the D3Feat rule (a pair is a frame and the last frame within 10 m of it, once a
+    later frame lies beyond 10 m) pairs frames (0, 3), (4, 7), ..., 9.9 m
+    apart: 4k + 1 frames give k pairs.  Returns the paths: root (the
+    config's ``root``) and ``dataset``."""
+    from pcrcg_tpu_torch.data.kitti import velo2cam
+
+    root = Path(root)
+    velo_dir = root / "dataset" / "sequences" / "00" / "velodyne"
+    pose_dir = root / "dataset" / "poses"
+    velo_dir.mkdir(parents=True, exist_ok=True)
+    pose_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    half_width = rng.uniform(6.0, 7.0)
+    length = _FRAME_SPACING * n_frames
+    boxes = _street_boxes(rng, -_LIDAR_RANGE - 20.0, length + _LIDAR_RANGE + 20.0, half_width)
+    n_az = max(points_per_scan // len(_HDL64_ELEVATIONS), 1)
+    elev, az = np.meshgrid(_HDL64_ELEVATIONS, np.arange(n_az) * (2 * np.pi / n_az),
+                           indexing="ij")
+    local = np.stack([np.cos(elev) * np.cos(az), np.cos(elev) * np.sin(az), np.sin(elev)],
+                     -1).reshape(-1, 3)
+    cam2velo = np.linalg.inv(velo2cam())
+    poses = []
+    for t in range(n_frames):
+        yaw = rng.uniform(-0.05, 0.05)
+        c, s = np.cos(yaw), np.sin(yaw)
+        velo2world = np.eye(4)
+        velo2world[:3, :3] = [[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]
+        velo2world[:3, 3] = (_FRAME_SPACING * t, rng.uniform(-0.3, 0.3), _LIDAR_HEIGHT)
+        dist = _cast_rays(velo2world[:3, 3], local @ velo2world[:3, :3].T, boxes, rng)
+        hit = np.isfinite(dist)
+        dist = dist[hit] + rng.normal(scale=0.02, size=int(hit.sum()))
+        pts = local[hit] * dist[:, None]  # in the scanner's frame
+        refl = rng.uniform(0.0, 1.0, (len(pts), 1))
+        np.concatenate([pts, refl], 1).astype(np.float32).tofile(velo_dir / f"{t:06d}.bin")
+        poses.append((velo2world @ cam2velo)[:3].reshape(-1))
+    np.savetxt(pose_dir / "00.txt", np.stack(poses))
+    return {"root": str(root), "dataset": str(root / "dataset")}
+
+
+def modelnet_shapes(n_models: int, n_points: int = 2048, seed: int = 0) -> np.ndarray:
+    """[n_models, n_points, 3] float32 surface samples of synthetic shapes
+    for a ModelNet source, each normalised as ModelNet40's HDF5 shards are:
+    centred and scaled into the unit sphere (largest norm 1).  A shape is a
+    union of 2-4 primitives (box, cylinder, ellipsoid surfaces) with random
+    sizes, offsets and orientations, sampled in proportion to their areas,
+    so it has no rotational symmetry."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((n_models, n_points, 3), np.float32)
+    for m in range(n_models):
+        parts, areas = [], []
+        for _ in range(int(rng.integers(2, 5))):
+            kind = int(rng.integers(0, 3))
+            size = rng.uniform(0.2, 1.0, 3)
+            parts.append((kind, size, rng.uniform(-0.6, 0.6, 3),
+                          np.linalg.qr(rng.normal(size=(3, 3)))[0]))
+            a, b, c = size
+            areas.append(2 * (a * b + b * c + a * c) if kind == 0 else
+                         2 * np.pi * a * (a + c) if kind == 1 else
+                         4 * np.pi * ((a * b) ** 1.6 + (a * c) ** 1.6 + (b * c) ** 1.6) ** (
+                             1 / 1.6) / 3 ** (1 / 1.6))
+        counts = rng.multinomial(n_points, np.asarray(areas) / np.sum(areas))
+        pts = []
+        for (kind, size, offset, rot), n in zip(parts, counts):
+            if kind == 0:  # box: a face chosen by area, then a point on it
+                u = rng.uniform(-1.0, 1.0, (n, 3))
+                face_area = np.array([size[1] * size[2], size[0] * size[2], size[0] * size[1]])
+                axis = rng.choice(3, n, p=face_area / face_area.sum())
+                u[np.arange(n), axis] = rng.choice([-1.0, 1.0], n)
+                p = u * size
+            elif kind == 1:  # capped cylinder along z
+                theta = rng.uniform(0.0, 2 * np.pi, n)
+                on_cap = rng.uniform(0.0, size[0] + size[2], n) < size[0]
+                r = np.where(on_cap, size[0] * np.sqrt(rng.uniform(0.0, 1.0, n)), size[0])
+                z = np.where(on_cap, rng.choice([-1.0, 1.0], n), rng.uniform(-1.0, 1.0, n))
+                p = np.stack([r * np.cos(theta), r * np.sin(theta), z * size[2]], 1)
+            else:  # ellipsoid
+                v = rng.normal(size=(n, 3))
+                p = v / np.linalg.norm(v, axis=1, keepdims=True) * size
+            pts.append(p @ rot.T + offset)
+        pts = np.concatenate(pts)
+        pts -= pts.mean(0)
+        out[m] = pts / np.linalg.norm(pts, axis=1).max()
+    return out

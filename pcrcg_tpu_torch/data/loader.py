@@ -96,9 +96,7 @@ class PairLoader:
             images = {k: torch.from_numpy(np.stack([s[k] for s in samples]))
                       for k in self.image_keys}
         if self.pin_memory:
-            batch = PairBatch(*(t.pin_memory() for t in (batch.points, batch.masks,
-                                                         batch.features, batch.rot,
-                                                         batch.trans)))
+            batch = batch.map(torch.Tensor.pin_memory)
             if images is not None:
                 images = {k: v.pin_memory() for k, v in images.items()}
         return batch, images
@@ -145,9 +143,9 @@ class PairLoader:
 
 
 def to_device(batch: PairBatch, images: Optional[dict], device) -> tuple[PairBatch, Optional[dict]]:
-    """A loader item on ``device`` (asynchronous copies from pinned memory)."""
-    batch = PairBatch(*(t.to(device, non_blocking=True) for t in (
-        batch.points, batch.masks, batch.features, batch.rot, batch.trans)))
+    """A loader item on ``device`` (asynchronous copies from pinned memory),
+    the raw clouds and extras included."""
+    batch = batch.map(lambda t: t.to(device, non_blocking=True))
     if images is not None:
         images = {k: v.to(device, non_blocking=True) for k, v in images.items()}
     return batch, images

@@ -25,6 +25,26 @@ class PairBatch:
     features: torch.Tensor  # [B, 2, N0, Cin]
     rot: torch.Tensor  # [B, 3, 3] GT rotation src->tgt
     trans: torch.Tensor  # [B, 3]
+    # Pre-augmentation clouds, same rows and order as ``points``: the loss
+    # uses them when the augmentation is not folded into (rot, trans), the
+    # KITTI protocol (reference datasets/kitti.py:17-19).  None -> points.
+    raw_points: Optional[torch.Tensor] = None
+    # Per-sample arrays stacked on the batch axis, e.g. ModelNet's clean
+    # full cloud 'points_raw' for the modified chamfer (reference
+    # lib/tester.py:280-286).  None when absent.
+    extras: Optional[dict] = None
+
+    @property
+    def loss_points(self) -> torch.Tensor:
+        return self.points if self.raw_points is None else self.raw_points
+
+    def map(self, fn) -> "PairBatch":
+        """The batch with ``fn`` applied to every tensor (extras too)."""
+        return PairBatch(
+            *(fn(t) for t in (self.points, self.masks, self.features, self.rot, self.trans)),
+            raw_points=None if self.raw_points is None else fn(self.raw_points),
+            extras=None if self.extras is None else {k: fn(v) for k, v in self.extras.items()},
+        )
 
 
 def subsample_to_budget(
@@ -85,17 +105,23 @@ def make_pair_batch(
     in_feats_dim: int = 1,
     features: Optional[np.ndarray] = None,
     rng: Optional[np.random.Generator] = None,
+    extra_keys: tuple = ("points_raw",),
     device="cpu",
 ) -> PairBatch:
-    """samples: dicts with src_pcd [n,3], tgt_pcd [m,3], rot [3,3], trans [3].
-    Input feature = ones column on real rows (reference
-    datasets/indoor.py:179-180) unless ``features`` [B,2,N,Cin] is given.
-    Each cloud's real rows are Z-ordered for search-tile locality."""
+    """samples: dicts with src_pcd [n,3], tgt_pcd [m,3], rot [3,3], trans [3]
+    and, optionally, the pre-augmentation raw_src_pcd / raw_tgt_pcd and the
+    per-sample ``extra_keys`` arrays.  Input feature = ones column on real
+    rows (reference datasets/indoor.py:179-180) unless ``features``
+    [B,2,N,Cin] is given.  Each cloud's real rows are Z-ordered for
+    search-tile locality; the raw clouds take the same row selection and
+    order, so rows stay aligned."""
     bsz = len(samples)
     pts = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32)
     msk = np.zeros((bsz, 2, budget), bool)
     rot = np.zeros((bsz, 3, 3), np.float32)
     trans = np.zeros((bsz, 3), np.float32)
+    has_raw = "raw_src_pcd" in samples[0]
+    raw = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32) if has_raw else None
     for i, s in enumerate(samples):
         src = np.asarray(s["src_pcd"], np.float32)
         tgt = np.asarray(s["tgt_pcd"], np.float32)
@@ -103,11 +129,18 @@ def make_pair_batch(
         sel_tgt = subsample_to_budget(tgt.shape[0], budget, rng)
         pts[i, 0], msk[i, 0] = pad_cloud(src, budget, select=sel_src)
         pts[i, 1], msk[i, 1] = pad_cloud(tgt, budget, select=sel_tgt)
+        if has_raw:
+            raw[i, 0] = pad_cloud(np.asarray(s["raw_src_pcd"], np.float32), budget,
+                                  select=sel_src)[0]
+            raw[i, 1] = pad_cloud(np.asarray(s["raw_tgt_pcd"], np.float32), budget,
+                                  select=sel_tgt)[0]
         for c in range(2):
             n = int(msk[i, c].sum())
             if n > 1:
                 order = _np_morton_order(pts[i, c, :n])
                 pts[i, c, :n] = pts[i, c, :n][order]
+                if has_raw:
+                    raw[i, c, :n] = raw[i, c, :n][order]
         rot[i] = np.asarray(s["rot"], np.float32).reshape(3, 3)
         trans[i] = np.asarray(s["trans"], np.float32).reshape(3)
     if features is None:
@@ -115,11 +148,16 @@ def make_pair_batch(
         feats = np.tile(feats, (1, 1, 1, in_feats_dim))
     else:
         feats = np.asarray(features, np.float32)
+    extras = {k: torch.from_numpy(np.stack([np.asarray(s[k], np.float32) for s in samples]))
+              for k in extra_keys if k in samples[0]}
     dev = torch.device(device)
-    return PairBatch(
-        points=torch.from_numpy(pts).to(dev),
-        masks=torch.from_numpy(msk).to(dev),
-        features=torch.from_numpy(feats).to(dev),
-        rot=torch.from_numpy(rot).to(dev),
-        trans=torch.from_numpy(trans).to(dev),
+    batch = PairBatch(
+        points=torch.from_numpy(pts),
+        masks=torch.from_numpy(msk),
+        features=torch.from_numpy(feats),
+        rot=torch.from_numpy(rot),
+        trans=torch.from_numpy(trans),
+        raw_points=torch.from_numpy(raw) if has_raw else None,
+        extras=extras or None,
     )
+    return batch.map(lambda t: t.to(dev))

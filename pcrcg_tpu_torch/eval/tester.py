@@ -8,6 +8,9 @@
 * ``IndoorTester``: every pair of a 3DMatch / 3DLoMatch split through
   ``register_pair``, a per-scene est.log, and the registration-recall
   protocol (``eval/benchmark_3dmatch.py``).
+* ``KITTITester``: every pair through ``register_pair`` (RANSAC n = 4 at
+  0.3 m), success at RRE < 5 deg and RTE < 2 m (reference
+  lib/tester.py:107-206).
 * ``dump_descriptors``: the reference's per-pair dump for offline RANSAC.
 
 Pair keys: the 3DMatch pkl pair (src = cloud_bin_j -> tgt = cloud_bin_i)
@@ -26,7 +29,7 @@ import torch
 from pcrcg_tpu_torch import resolve_device
 from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.data.loader import to_device
-from pcrcg_tpu_torch.eval.benchmark_3dmatch import benchmark, write_trajectory
+from pcrcg_tpu_torch.eval.benchmark_3dmatch import benchmark, rotation_error_deg, write_trajectory
 from pcrcg_tpu_torch.eval.metrics import feature_match_recall_sweep, inlier_ratio
 from pcrcg_tpu_torch.models.pcrcg import refuse_image_feature
 from pcrcg_tpu_torch.registration.ransac import (
@@ -215,6 +218,70 @@ class IndoorTester:
             flush=True,
         )
         return {"benchmark": result, "est_folder": est_folder, "n_pairs": idx, **desc}
+
+
+class KITTITester:
+    """Registration recall at RRE < 5 deg and RTE < 2 m, and the median RRE
+    and RTE of the pairs under each bound (reference tester.py:107-206);
+    ``run`` also returns the pair count and each pair's RRE and RTE.  Runs
+    on ``device``: CUDA unless the caller names the CPU; the model must
+    live there."""
+
+    def __init__(self, cfg: Config, model, device=None):
+        self.cfg = cfg
+        self.model = model
+        self.device = resolve_device(device)
+
+    def run(self, loader, n_points: int = 5000, generator: Optional[torch.Generator] = None,
+            num_iterations: int = 50000, hypothesis_chunk: int = 1024) -> Dict:
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        rot_est, trans_est, rot_gt, trans_gt = [], [], [], []
+        # As in IndoorTester.run: pair i - 2's transform is copied to the
+        # host while pair i computes.
+        inflight: deque = deque()
+
+        def realize(item):
+            T_dev, r_gt, t_gt = item
+            T = T_dev.cpu().numpy()
+            rot_est.append(T[:3, :3])
+            trans_est.append(T[:3, 3])
+            rot_gt.append(r_gt)
+            trans_gt.append(t_gt)
+
+        for batch, images in loader:
+            host = batch.map(torch.Tensor.cpu)
+            batch, images = to_device(batch, images, self.device)
+            for b in range(batch.points.shape[0]):
+                res = register_pair(
+                    self.model, self.cfg, batch.points[b], batch.masks[b], batch.features[b],
+                    generator, n_points=n_points, distance_threshold=0.3, ransac_n=4,
+                    num_iterations=num_iterations, hypothesis_chunk=hypothesis_chunk,
+                    device=self.device,
+                )
+                inflight.append((res["transform"], host.rot[b].numpy(), host.trans[b].numpy()))
+                if len(inflight) > 2:
+                    realize(inflight.popleft())
+        while inflight:
+            realize(inflight.popleft())
+        ds = getattr(loader, "dataset", None)
+        if ds is not None and len(rot_est) != len(ds):
+            raise RuntimeError(
+                f"KITTITester scored {len(rot_est)}/{len(ds)} pairs — the "
+                "loader dropped part of the split (construct the eval "
+                "PairLoader with drop_last=False / batch_size dividing "
+                "the split)"
+            )
+        rre = rotation_error_deg(np.stack(rot_est), np.stack(rot_gt))
+        rte = np.linalg.norm(np.stack(trans_est) - np.stack(trans_gt), axis=-1)
+        success = (rre < 5.0) & (rte < 2.0)
+        out = {
+            "registration_recall": float(success.mean()),
+            "rre_median": float(np.median(rre[rre < 5.0])) if (rre < 5.0).any() else float("nan"),
+            "rte_median": float(np.median(rte[rte < 2.0])) if (rte < 2.0).any() else float("nan"),
+        }
+        print(out, flush=True)
+        return {**out, "n_pairs": len(rre), "rre": rre, "rte": rte}
 
 
 @torch.no_grad()

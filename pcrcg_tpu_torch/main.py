@@ -6,9 +6,11 @@
 Loads the (reference-compatible) YAML config, builds the datasets, the
 model and the optimizer, and dispatches on ``mode``: ``train`` (epochs of
 train + val with checkpoints), ``val`` (one pass over the val split) or
-``test`` (``IndoorTester`` over the ``benchmark`` split, scored against
-its gt files).  Runs on CUDA unless ``--device cpu`` is given.  The indoor
-(3DMatch / 3DLoMatch) dataset only: KITTI and ModelNet are ROADMAP item 5.
+``test``, by ``dataset``: indoor (``IndoorTester`` over the ``benchmark``
+split, scored against its gt files), kitti (``KITTITester``) or modelnet
+(``ModelnetTester``).  Runs on CUDA unless ``--device cpu`` is given.
+KITTI reads its split lists from ``configs/kitti/{train,val,test}_kitti.txt``
+relative to the working directory, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -18,27 +20,32 @@ import os
 from pcrcg_tpu_torch.assets import benchmark_gt_root
 from pcrcg_tpu_torch.config import Config, load_config
 from pcrcg_tpu_torch.data.indoor import IndoorDataset, load_split
+from pcrcg_tpu_torch.data.kitti import KITTIDataset
 from pcrcg_tpu_torch.data.loader import PairLoader
-from pcrcg_tpu_torch.eval.tester import IndoorTester
+from pcrcg_tpu_torch.data.modelnet import get_modelnet_datasets
+from pcrcg_tpu_torch.eval.modelnet_metrics import ModelnetTester
+from pcrcg_tpu_torch.eval.tester import IndoorTester, KITTITester
 from pcrcg_tpu_torch.train.trainer import Trainer
 
 
 def build_datasets(cfg: Config):
-    if cfg.dataset in ("kitti", "modelnet"):
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (ROADMAP item 5: the KITTI and "
-            "ModelNet datasets and their testers)")
-    if cfg.dataset != "indoor":
-        raise ValueError(f"Unknown dataset: {cfg.dataset}")
-    if cfg.mode == "train":
-        return {"train": load_split(cfg, "train"), "val": load_split(cfg, "val")}
-    if cfg.mode == "val":
-        return {"val": load_split(cfg, "val")}
-    return {"test": IndoorDataset(
-        os.path.join(os.path.dirname(cfg.val_info or "configs/indoor"), f"{cfg.benchmark}.pkl"),
-        cfg,
-        data_augmentation=False,
-    )}
+    if cfg.dataset == "indoor":
+        if cfg.mode == "train":
+            return {"train": load_split(cfg, "train"), "val": load_split(cfg, "val")}
+        if cfg.mode == "val":
+            return {"val": load_split(cfg, "val")}
+        return {"test": IndoorDataset(
+            os.path.join(os.path.dirname(cfg.val_info or "configs/indoor"),
+                         f"{cfg.benchmark}.pkl"),
+            cfg,
+            data_augmentation=False,
+        )}
+    if cfg.dataset == "kitti":
+        phases = {"train": ("train", "val"), "val": ("val",), "test": ("test",)}[cfg.mode]
+        return {p: KITTIDataset(cfg, p) for p in phases}
+    if cfg.dataset == "modelnet":
+        return get_modelnet_datasets(cfg)
+    raise ValueError(f"Unknown dataset: {cfg.dataset}")
 
 
 def main(argv=None):
@@ -60,6 +67,12 @@ def main(argv=None):
     if cfg.mode == "val":
         trainer.eval()
         return trainer
+    if cfg.dataset == "kitti":
+        return KITTITester(cfg, trainer.model, device=trainer.device).run(
+            trainer.loaders["test"])
+    if cfg.dataset == "modelnet":
+        return ModelnetTester(cfg, trainer.model, device=trainer.device).run(
+            trainer.loaders["test"])
     tester = IndoorTester(cfg, trainer.model, benchmark_gt_root(cfg.benchmark),
                           device=trainer.device)
     ds = datasets["test"]

@@ -71,13 +71,17 @@ def loss_from_outputs(cfg: Config, out, pyramid, points, masks, rot, trans,
 def pair_loss(model, cfg: Config, points, masks, features, rot, trans,
               uniforms: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              images=None) -> Dict[str, torch.Tensor]:
+              images=None, raw_points=None) -> Dict[str, torch.Tensor]:
     """The loss stats of one pair, ``total`` differentiable, plus
     ``max_overflow`` (> 0: the grid subsample dropped voxels past a level's
-    budget for this pair)."""
+    budget for this pair).  The loss's geometry is ``raw_points`` [2, N, 3]
+    when given (the pre-augmentation clouds, row for row with ``points``:
+    the KITTI protocol, reference datasets/kitti.py:17-19), else the
+    model-input ``points``."""
     out, pyramid, overflow = forward_pair(model, cfg, points, masks, features, images,
                                           with_overflow=True)
-    stats = loss_from_outputs(cfg, out, pyramid, points, masks, rot, trans, uniforms,
+    loss_pts = points if raw_points is None else raw_points
+    stats = loss_from_outputs(cfg, out, pyramid, loss_pts, masks, rot, trans, uniforms,
                               generator)
     stats["max_overflow"] = overflow.max().clamp_min(0).float()
     return stats
@@ -102,7 +106,8 @@ def _stats_over_pairs(model, cfg: Config, batch: PairBatch,
         stats = pair_loss(model, cfg, batch.points[i], batch.masks[i], batch.features[i],
                           batch.rot[i], batch.trans[i],
                           uniforms=None if uniforms is None else uniforms[i],
-                          generator=generator, images=_pair_images(images, i))
+                          generator=generator, images=_pair_images(images, i),
+                          raw_points=None if batch.raw_points is None else batch.raw_points[i])
         if backward:
             (stats["total"] / n_pairs).backward()
         per_pair.append({k: v.detach() for k, v in stats.items()})

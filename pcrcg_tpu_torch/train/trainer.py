@@ -52,8 +52,8 @@ class Trainer:
     def __init__(self, cfg: Config, datasets: Dict[str, object], device=None):
         if cfg.data_parallel > 1:
             raise NotImplementedError(
-                f"data_parallel={cfg.data_parallel}: the port trains on one device "
-                "(multi-device training is ROADMAP item 6)")
+                f"data_parallel={cfg.data_parallel}: the port trains on one device; "
+                "multi-device (`torch.distributed`) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = Logger(cfg.exp_dir)

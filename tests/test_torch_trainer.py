@@ -25,9 +25,12 @@ from pcrcg_tpu.models.torch_import import export_kpfcnn_state_dict
 from pcrcg_tpu.ops.pyramid import build_pyramid_cfg as j_build_pyramid_cfg
 from pcrcg_tpu_torch import config as tcfg
 from pcrcg_tpu_torch import main as tmain
-from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, write_indoor_fixture
+from pcrcg_tpu_torch.assets import (
+    demo_cloud_pair, demo_pair_gt_pose, write_indoor_fixture, write_kitti_fixture,
+)
 from pcrcg_tpu_torch.config import load_config
 from pcrcg_tpu_torch.data.indoor import IndoorDataset, load_split
+from pcrcg_tpu_torch.data.kitti import KITTIDataset
 from pcrcg_tpu_torch.data.loader import PairLoader
 from pcrcg_tpu_torch.data.pair import make_pair_batch
 from pcrcg_tpu_torch.eval.tester import IndoorTester, dump_descriptors, register_pair
@@ -201,14 +204,17 @@ def test_tester_refuses_an_incomplete_split(split):
         tester.run(ds, loader, n_points=32)
 
 
-def test_trainer_guards(split, tmp_path):
+def test_trainer_guards(split, tmp_path, monkeypatch):
     """data_parallel > 1 raises; overflow_action 'error' raises at the first
-    step whose pyramid drops voxels (level budgets far below occupancy)."""
+    step whose pyramid drops voxels (level budgets far below occupancy);
+    the KITTI datasets build (split lists under configs/kitti of the
+    working directory)."""
     _, model, _ = split
     cfg = load_config(_write_yaml(tmp_path / "g.yaml", **{**model,
                                                           "exp_dir": str(tmp_path / "g")}))
     datasets = {"val": load_split(cfg, "val")}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match=r"multi-device \(`torch.distributed`\) is "
+                                                  "not ported yet"):
         Trainer(cfg.replace(data_parallel=2), datasets, device="cpu")
     small = tcfg.Budgets(points=(448, 64, 64, 64), neighbors=(16,) * 4, corr_k=8,
                          query_chunk=64, search_tile=32, search_m_tiles=4)
@@ -216,8 +222,16 @@ def test_trainer_guards(split, tmp_path):
                       device="cpu")
     with pytest.raises(RuntimeError, match="OVERFLOW"):
         trainer.eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tmain.build_datasets(cfg.replace(dataset="kitti"))
+    kitti = write_kitti_fixture(tmp_path / "kitti", 9, seed=0, points_per_scan=4000)
+    (tmp_path / "configs" / "kitti").mkdir(parents=True)
+    for s in ("train", "val", "test"):
+        (tmp_path / "configs" / "kitti" / f"{s}_kitti.txt").write_text("0\n")
+    monkeypatch.chdir(tmp_path)
+    datasets = tmain.build_datasets(cfg.replace(dataset="kitti", root=kitti["root"],
+                                                first_subsampling_dl=0.3))
+    assert sorted(datasets) == ["train", "val"]
+    assert all(isinstance(d, KITTIDataset) and d.files == [(0, 0, 3), (0, 4, 7)]
+               for d in datasets.values())
 
 
 def test_reference_pretrain_loads_with_counts(split, tmp_path):
