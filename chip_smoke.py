@@ -135,9 +135,38 @@ Phases, each printed as it completes:
                finite, the chamfer on the batches' ``extras['points_raw']``).
 22. agree-modelnet — 4 at the 3-level topology (N0 = 1,024) on a ModelNet
                test pair.
+23. kernels-deformable, path-deformable, train-deformable, agree-deformable,
+               agree-train-deformable — ``Config(deformable=True,
+               modulated=True)`` on the assets pair: K1 on the 9 serving
+               searches at the widened radii against its plain chain, K6 on
+               the 10 offset sub-convs ((C, D) = (64..512, 60)) and K3's
+               gathered entry on their backward against their plain versions
+               and timed; 3 and 5 (K2 1, K6 10 a pair; K3 11, K4 and K5 none
+               a step); 4 at the tiny widths; 6 with the shipped heads (off)
+               on the first crop whose CPU path is well conditioned.
+24. path-dense, kernels-dense, train-dense, routes-dense, agree-dense —
+               ``search_impl: dense``: 3 and 5
+               (K6 8, K7 3, no K1 or K2; K3 11, no K5), then the tiled and
+               dense routes' pyramids compared: the tiled conv lists' recall
+               of the exact ones by level (>= 0.95; 1.0 where the tiled
+               search falls back to the dense one), the share of the tiled
+               conv lists' entries that the dense lists hold where they
+               have room (>= 0.999), the pool and upsample recall and the
+               two routes' descriptors printed; kernels-dense — K6 and K7
+               on the calls of a serving forward and K3's gathered entry on
+               those of a train_step, against their plain versions and
+               timed; agree-dense — 4 on the dense route.
+25. dp       — ``train_step_dp`` on two ranks of ``torch.distributed`` that
+               share the card (gloo by name: NCCL takes a card a rank),
+               ``Config()``, a pair a rank, 3 steps: step 1 against the
+               single-process ``train_step`` on the same 2-pair batch, weights
+               and draws (loss terms rtol 1e-4, parameters rtol 5e-4 / atol
+               5e-5), the ranks' parameters bit-identical, K1-K5 launched in
+               each rank, ms a dp step; then ``main.py`` for an epoch of a
+               fixture split in a one-rank NCCL group (checkpoints, losses).
 
-Then it prints the card's ``name, power.limit``, one JSON line with every
-kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
+Then it prints the wall time, the card's ``name, power.limit``, one JSON
+line with every kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
 entry from [train-untiled], K8 from [path-reduce]; K4 runs inside K3's
 tiled entry, so its row gives that entry's time and bound), and as its
 last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -918,7 +947,7 @@ def tpu_merged_counts(nxc_t):
     return (hsum > 0.0).sum(0).clamp_min(1).to(nxc_t.dtype)
 
 
-def _gathered_conv_phase(key, calls, kernel, plain, shapes):
+def _gathered_conv_phase(key, calls, kernel, plain, shapes, tag="kernels-untiled"):
     """K6 / K7: each recorded call against its plain version (outputs after
     the ÷nn on the queries whose counts agree, which must be >= 1 - 1e-4 of
     them), then timed: the whole kernel, its phase A (influences, reduce,
@@ -1011,11 +1040,11 @@ def _gathered_conv_phase(key, calls, kernel, plain, shapes):
                  f"TFLOP/s of TF32 product, {res['w_flops'] / 1e9:.1f} GFLOP x {TF32_PASSES}; "
                  f"torch.matmul fp32 on phase B's operands, allow_tf32=False: "
                  f"{res['matmul_ms']:.4f} ms)")
-    print(f"[kernels-untiled] {key} over {len(calls)} calls: {res['ms']:.4f} ms{split}; plain "
+    print(f"[{tag}] {key} over {len(calls)} calls: {res['ms']:.4f} ms{split}; plain "
           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']}; W as "
           f"3xTF32) [all fp32: {bound_fp32:.4f} ms]", flush=True)
     if key == "K7":
-        print(f"[kernels-untiled] K7 counts under the TPU kernel's s_all - s_coord rule on the "
+        print(f"[{tag}] K7 counts under the TPU kernel's s_all - s_coord rule on the "
               f"recorded full-width gathers (the encoder's features of the assets pair, seeded "
               f"random weights): "
               f"{res['tpu_rule_diff']} of {res['queries']} queries differ from the port's "
@@ -1095,7 +1124,7 @@ def record_gathered_backward_inputs(cfg, batch, state, generator):
                         {"K3g": (kf_mod, "kpconv_fused_bwd")})
 
 
-def phase_k3g(calls):
+def phase_k3g(calls, tag="kernels-untiled"):
     """K3's gathered entry on every recorded call against its plain version
     (relative 1e-4), dW bit for bit against a second run and within 1e-5 of
     its largest entry against float64, as is gW_t's product; timed with
@@ -1196,7 +1225,7 @@ def phase_k3g(calls):
                         f"{res['a_ms']:.4f} + rest {res['ms'] - products - res['a_ms']:.4f}")
         else:
             summary += f" + rest {res['ms'] - products:.4f}"
-    print(f"[kernels-untiled] K3 gathered over {len(calls)} calls: {res['ms']:.4f} ms{summary}; "
+    print(f"[{tag}] K3 gathered over {len(calls)} calls: {res['ms']:.4f} ms{summary}; "
           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; products as 3xTF32); all-fp32 "
           f"rule {bound(res['nbytes'], res['old_flops'])[0]:.4f} ms", flush=True)
     # No single PyTorch call computes dW, gW and the recomputed influences.
@@ -1303,14 +1332,13 @@ def phase_agree(tag="agree", images_hw=None, budgets=None, sample=None, **overri
     import numpy as np
     import torch
     from pcrcg_tpu_torch.assets import demo_cloud_pair
-    from pcrcg_tpu_torch.config import Budgets, tiny_test_config
+    from pcrcg_tpu_torch.config import tiny_test_config
     from pcrcg_tpu_torch.data.pair import make_pair_batch
     from pcrcg_tpu_torch.eval.tester import register_pair
     from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
 
     if budgets is None:
-        budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
-                          query_chunk=512, search_tile=128, search_m_tiles=4)
+        budgets = _agree_budgets()
     n0 = budgets.points[0]
     if images_hw is not None:
         overrides = dict(overrides, image_feature=True, in_feats_dim=129)
@@ -1482,9 +1510,10 @@ def phase_train(cfg, batch, state, tag="train", launched=("K1", "K2", "K3", "K4"
     return launches
 
 
-def _overlap_crop(n_src, n_tgt):
+def _overlap_crop(n_src, n_tgt, at=0.5):
     """The assets pair cut to the n nearest points of each cloud around one
-    point of their overlap, with the GT pose."""
+    point of their overlap (the one at quantile ``at`` of the overlapping
+    source points' order), with the GT pose."""
     import numpy as np
     import torch
     from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose
@@ -1493,10 +1522,10 @@ def _overlap_crop(n_src, n_tgt):
     src, tgt = demo_cloud_pair()
     rot, trans = demo_pair_gt_pose()
     warped = src @ rot.T + trans
-    d2 = min_dist_sq(torch.from_numpy(warped).cuda(), torch.from_numpy(tgt).cuda(),
-                     torch.ones(len(tgt), dtype=torch.bool, device="cuda")).cpu().numpy()
+    d2 = min_dist_sq(torch.from_numpy(warped), torch.from_numpy(tgt),
+                     torch.ones(len(tgt), dtype=torch.bool)).numpy()
     overlap = np.flatnonzero(d2 < 0.0375**2)
-    center = src[overlap[len(overlap) // 2]]
+    center = src[overlap[int(len(overlap) * at)]]
 
     def near(p, c, n):
         return p[np.argsort(((p - c) ** 2).sum(1), kind="stable")[:n]]
@@ -1549,15 +1578,22 @@ def phase_lift_stage(cfg, batch, model, images):
     check(share > 0.1, f"only {share} of the points lifted from an image")
 
 
-def _agree_train_config(**overrides):
-    """[agree-train*]'s Config: tiny widths at N0 = 2,048, both heads on
-    unless ``overrides`` say otherwise."""
-    from pcrcg_tpu_torch.config import Budgets, tiny_test_config
+def _agree_budgets(**overrides):
+    """The budgets of [agree*] and [agree-train*]: 4 levels at N0 = 2,048."""
+    from pcrcg_tpu_torch.config import Budgets
 
-    budgets = Budgets(points=(2048, 1024, 512, 256), neighbors=(40,) * 4, corr_k=8,
-                      query_chunk=512, search_tile=128, search_m_tiles=4)
-    return tiny_test_config(budgets=budgets, **{"node_overlap": True, "quaternion": True,
-                                                **overrides})
+    return Budgets(**{"points": (2048, 1024, 512, 256), "neighbors": (40,) * 4, "corr_k": 8,
+                      "query_chunk": 512, "search_tile": 128, "search_m_tiles": 4,
+                      **overrides})
+
+
+def _agree_train_config(**overrides):
+    """[agree-train*]'s Config: tiny widths at ``_agree_budgets()``, both
+    heads on unless ``overrides`` say otherwise."""
+    from pcrcg_tpu_torch.config import tiny_test_config
+
+    return tiny_test_config(**{"budgets": _agree_budgets(), "node_overlap": True,
+                               "quaternion": True, **overrides})
 
 
 def _agree_train_draws(cfg):
@@ -2347,6 +2383,569 @@ def phase_modelnet(repo, work):
     return device_ms
 
 
+# [kernels-deformable]: the offset sub-convs' widths, (C, D) = (quarter of
+# the block's width, 4K) under Config(deformable=True, modulated=True).
+OFFSET_SHAPES = ((64, 60), (128, 60), (256, 60), (512, 60))
+
+
+def phase_deformable(batch):
+    """[kernels-deformable], [path-deformable], [train-deformable],
+    [agree-deformable], [agree-train-deformable]: ``Config(deformable=True,
+    modulated=True)`` at full width on the assets pair (seeded random
+    weights).  K1 on the 9 serving searches at the widened radii, K6 on the
+    10 offset sub-convs of a serving forward and K3's gathered entry on
+    their backward in one ``train_step`` are held against their plain
+    versions and timed; then a pair, 3 train steps, and the CUDA path
+    against the CPU path at the tiny widths."""
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.config import Config
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused, kpconv_fused_plain
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+    from pcrcg_tpu_torch.train.state import TrainState
+
+    cfg = Config(deformable=True, modulated=True)
+    conv_flags, pool_flags = cfg.deform_level_flags()
+    print(f"[kernels-deformable] search radii widened by {cfg.deform_radius / cfg.conv_radius:g} "
+          f"at conv levels {[i for i, f in enumerate(conv_flags) if f]} and pool levels "
+          f"{[i for i, f in enumerate(pool_flags) if f]}", flush=True)
+    model = init_kpfcnn(cfg, seed=0, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model(build_pyramid_cfg(cfg, batch.points[0], batch.masks[0]), batch.features[0])
+
+    with recording_k1([(pyramid_mod, "radius_search_tiled_batch")]) as k1_calls:
+        calls = record_calls(forward, {"K6": (kf_mod, "kpconv_fused"),
+                                       "K2": (kt_mod, "kpconv_tiled")})
+    print(f"[kernels-deformable] recorded {len(k1_calls)} K1, {len(calls['K2'])} K2 and "
+          f"{len(calls['K6'])} K6 calls (the offset sub-convs) in one serving forward",
+          flush=True)
+    check(len(k1_calls) == 9 and len(calls["K2"]) == 1 and len(calls["K6"]) == 10,
+          "[kernels-deformable] unexpected call counts")
+    phase_k1(k1_calls, tag="kernels-deformable")
+    k6 = _gathered_conv_phase("K6", calls["K6"], kpconv_fused, kpconv_fused_plain, OFFSET_SHAPES,
+                              tag="kernels-deformable")
+    del calls, k1_calls
+    torch.cuda.empty_cache()
+
+    state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    calls = record_gathered_backward_inputs(cfg, batch, state, gen)
+    print(f"[kernels-deformable] recorded {len(calls['K3g'])} calls of K3's gathered entry (the "
+          "offset sub-convs' backward) in one train_step", flush=True)
+    check(len(calls["K3g"]) == 10, "[kernels-deformable] K3 gathered: expected 10 calls")
+    k3g = phase_k3g(calls["K3g"], tag="kernels-deformable")
+    del calls
+    torch.cuda.empty_cache()
+
+    # Block 0 (simple, rigid) on K2; every resnetb block deformable: its
+    # offset sub-conv on K6 forward and K3's gathered entry backward, its
+    # deformable conv dense, its strided shortcut the dense max-pool.
+    phase_path(cfg, batch, model, "path-deformable",
+               {"K1": None, "K2": 1, "K6": 10, "K7": 0, "K8": 0})
+    del model
+    phase_train(cfg, batch, state, "train-deformable", launched=("K1", "K2", "K3", "K6"),
+                idle=("K4", "K5", "K7", "K8"), per_step={"K2": 1, "K6": 10, "K3": 11})
+    del state
+    torch.cuda.empty_cache()
+    phase_agree("agree-deformable", deformable=True, modulated=True)
+    # The CUDA path against the CPU path in training, with the shipped
+    # configs' heads (off) on the first crop of the assets pair that is well
+    # conditioned: with both heads on, one rounding unit in K2's outputs or
+    # the weights moves the deformable model's CPU gradients or updates by
+    # 0.4 to 13 times their bounds on every crop tried (a CPU rehearsal).
+    deform_cfg = dict(deformable=True, modulated=True, node_overlap=False, quaternion=False)
+    shares = []
+    for at in (0.5, 0.1, 0.25):
+        crop = _overlap_crop(2048, 2000, at)
+        shares.append(_rounding_sensitivity(crop, **deform_cfg))
+        if shares[-1] <= 0.1:
+            break
+    print(f"[agree-train-deformable] crops around the overlap points at quantiles 0.5, 0.1, "
+          f"0.25: one rounding unit in K2's outputs or the weights moves the CPU path's "
+          f"gradients or updates by {[round(v, 3) for v in shares]} of their bounds; held on "
+          f"crop {len(shares) - 1}", flush=True)
+    check(shares[-1] <= 0.1, "[agree-train-deformable] no crop is well conditioned")
+    phase_agree_train("agree-train-deformable", sample=crop, **deform_cfg)
+    return k6, k3g
+
+
+def _level_perm(p_from, m_from, p_to, m_to):
+    """Row i of a level in one pyramid -> the row of the same voxel in the
+    other: its nearest point there (the same voxels in another order;
+    from level 2 on their barycenters sum the finer level's rows in another
+    order, so they agree to rounding).  Pads map to the shadow index."""
+    import torch
+    from pcrcg_tpu_torch.ops.neighbors import knn_search
+
+    n = p_from.shape[0]
+    perm = torch.full((n + 1,), n, dtype=torch.long)
+    rf = torch.nonzero(m_from.cpu()).flatten()
+    idx = knn_search(p_from.cpu()[rf], p_to.cpu(), m_to.cpu(), 1)[0][:, 0]
+    gap = float((p_from.cpu()[rf].double() - p_to.cpu()[idx].double()).abs().max())
+    check(int(m_from.sum()) == int(m_to.sum()), "[routes-dense] the pyramids hold other voxels")
+    check(gap <= 1e-5 and idx.unique().numel() == rf.numel(),
+          f"[routes-dense] the pyramids' voxels differ (max coordinate gap {gap:.2e})")
+    perm[rf] = idx
+    return perm
+
+
+def _neighbor_recall(t_idx, d_idx, q_perm, s_perm):
+    """The share of the exact (dense) neighbor lists' entries that the
+    tiled lists hold, over every real query of both clouds."""
+    import torch
+
+    found = total = 0
+    for c in range(t_idx.shape[0]):
+        n = s_perm[c].shape[0] - 1
+        t = s_perm[c][t_idx[c].cpu()]  # into the dense pyramid's rows
+        rows = q_perm[c][:-1]
+        real = rows < rows.shape[0]
+        t, d = t[real], d_idx[c].cpu()[rows[real]]
+        both = torch.cat([t, d], 1).sort(1).values
+        found += int(((both[:, 1:] == both[:, :-1]) & (both[:, 1:] < n)).sum())
+        total += int((d < n).sum())
+    return found / max(total, 1)
+
+
+def _tiled_in_dense(t_idx, d_idx, q_perm, s_perm):
+    """The share of the tiled lists' real entries that the dense lists hold,
+    over the rows whose dense list has room (a full list keeps only the
+    nearest neighbors, which may exclude a tiled entry): 1 unless the dense
+    search loses neighbors, or a distance at the radius rounds to either
+    side in the two searches."""
+    import torch
+
+    found = total = 0
+    for c in range(t_idx.shape[0]):
+        n = s_perm[c].shape[0] - 1
+        t = s_perm[c][t_idx[c].cpu()]  # into the dense pyramid's rows
+        rows = q_perm[c][:-1]
+        real = rows < rows.shape[0]
+        t, d = t[real], d_idx[c].cpu()[rows[real]]
+        room = (d >= n).any(1)
+        t, d = t[room], d[room]
+        held = t < n
+        found += int(((t.unsqueeze(2) == d.unsqueeze(1)).any(2) & held).sum())
+        total += int(held.sum())
+    return found / max(total, 1)
+
+
+def phase_routes_dense(batch, cfg_tiled, cfg_dense):
+    """[routes-dense]: the tiled route (Morton-ordered pyramid, K1's pruned
+    searches, K2) against the dense one (raster order, exact searches, K6 /
+    K7) on the assets pair, the same seeded weights.  The tiled search
+    keeps each 128-query group's ``search_m_tiles`` nearest candidate tiles,
+    so it finds most, not all, of the exact search's neighbors (the JAX
+    package measured a neighbor recall of 0.962 / 0.978 / 0.994 / 1.0 by
+    level at m_tiles 12 on this pair, pcrcg_tpu/config.py:84-95): the
+    routes' neighborhoods differ, and through 11 blocks of random weights so
+    do their descriptors (printed).  The checks: per level, the share of the
+    exact conv lists' entries that the tiled lists hold, at least 0.95, the
+    JAX package's validated floor, and 1.0 where the tiled search falls back
+    to the dense one (a level of no more tiles than ``search_m_tiles``); and
+    the share of the tiled conv lists' entries that the dense lists hold
+    where they have room, at least 0.999, so a dense search that loses
+    neighbors fails.
+    The pool searches (coarser queries, so wider query groups) and the k = 1
+    upsample (4 candidate tiles) find fewer; their shares are printed (the
+    JAX package measured neither)."""
+    import torch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+
+    outs = {}
+    with torch.no_grad():
+        for name, cfg in (("tiled", cfg_tiled), ("dense", cfg_dense)):
+            pyr, overflow = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0],
+                                              with_overflow=True)
+            check(int(overflow.max()) <= 0, f"[routes-dense] {name} pyramid drops voxels")
+            outs[name] = (init_kpfcnn(cfg, seed=0, device="cuda")(pyr, batch.features[0]), pyr)
+    (ref, pt), (out, pd) = outs["tiled"], outs["dense"]
+    mask = batch.masks[0]
+    cos = (out["feats_f"] * ref["feats_f"]).sum(-1)[mask]
+    diffs = {k: float((out[k] - ref[k]).abs().max()) for k in ("scores_overlap", "scores_saliency")}
+    levels = len(pt.points)
+    perms = [[_level_perm(pt.points[l][c], pt.masks[l][c], pd.points[l][c], pd.masks[l][c])
+              for c in range(2)] for l in range(levels)]
+    tile, m_tiles = cfg_tiled.budgets.search_tile, cfg_tiled.budgets.m_tiles_at
+    rows = []
+    for lvl in range(levels):
+        conv = _neighbor_recall(pt.neighbors[lvl], pd.neighbors[lvl], perms[lvl], perms[lvl])
+        pool = up = None
+        if lvl + 1 < levels:
+            pool = _neighbor_recall(pt.pools[lvl], pd.pools[lvl], perms[lvl + 1], perms[lvl])
+            up = _neighbor_recall(pt.upsamples[lvl], pd.upsamples[lvl], perms[lvl],
+                                  perms[lvl + 1])
+        exact = -(-pt.points[lvl].shape[1] // tile) <= m_tiles(lvl)
+        held = _tiled_in_dense(pt.neighbors[lvl], pd.neighbors[lvl], perms[lvl], perms[lvl])
+        rows.append((lvl, conv, pool, up, exact, held))
+    print("[routes-dense] neighbor recall of the tiled route against the exact dense search, "
+          "by level (conv / pool / k=1 upsample): " + "; ".join(
+              f"L{l} {c:.4f} / {'-' if p is None else f'{p:.4f}'} / "
+              f"{'-' if u is None else f'{u:.4f}'}{' (dense fallback)' if e else ''}"
+              for l, c, p, u, e, _ in rows), flush=True)
+    print("[routes-dense] share of the tiled conv lists' entries that the dense lists hold "
+          "(rows with room), by level: " + ", ".join(f"L{r[0]} {r[5]:.6f}" for r in rows),
+          flush=True)
+    print(f"[routes-dense] descriptors of the two routes (different neighborhoods, random "
+          f"weights): cosine min {float(cos.min()):.4f}, median {float(cos.median()):.4f}; "
+          f"max |d| " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
+    for lvl, conv, _, _, exact, held in rows:
+        check(conv >= 0.95, f"[routes-dense] level {lvl} conv recall {conv}")
+        check(held >= 0.999, f"[routes-dense] level {lvl}: the dense lists miss "
+                             f"{1 - held:.2e} of the tiled lists' neighbors")
+        check(exact is False or conv == 1.0, f"[routes-dense] level {lvl}: the dense fallback "
+                                             f"differs from the dense route ({conv})")
+
+
+def phase_dense(batch):
+    """[path-dense], [train-dense], [routes-dense]: ``search_impl: dense``
+    at full width: the reference's raster-order subsample and dense radius
+    searches (no K1), the untiled KPConv route (K6 / K7 forward, K3's
+    gathered entry backward, no K2 or K5), the loss's dense searches; then
+    [kernels-dense]: the K6 and K7 calls of a serving forward and the K3
+    gathered calls of a train_step on that route held against their plain
+    versions, and [agree-dense]: the CUDA path against the CPU path there
+    at the tiny widths."""
+    import dataclasses
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    from pcrcg_tpu_torch.config import Config
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.ops.kpconv_fused import (
+        kpconv_fused, kpconv_fused_merged, kpconv_fused_merged_plain, kpconv_fused_plain,
+    )
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+    from pcrcg_tpu_torch.train.state import TrainState
+
+    base = Config()
+    cfg = base.replace(budgets=dataclasses.replace(base.budgets, search_impl="dense"))
+    model = init_kpfcnn(cfg, seed=0, device="cuda")
+    phase_path(cfg, batch, model, "path-dense", {"K1": 0, "K2": 0, "K6": 8, "K7": 3, "K8": 0})
+
+    def forward():
+        with torch.no_grad():
+            model(build_pyramid_cfg(cfg, batch.points[0], batch.masks[0]), batch.features[0])
+
+    calls = record_calls(forward, {"K6": (kf_mod, "kpconv_fused"),
+                                   "K7": (kf_mod, "kpconv_fused_merged")})
+    _gathered_conv_phase("K6", calls["K6"], kpconv_fused, kpconv_fused_plain, FULL_SHAPES,
+                         tag="kernels-dense")
+    _gathered_conv_phase("K7", calls["K7"], kpconv_fused_merged, kpconv_fused_merged_plain,
+                         FULL_SHAPES[1:4], tag="kernels-dense")
+    del model, calls
+    state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    calls = record_gathered_backward_inputs(cfg, batch, state, gen)
+    check(len(calls["K3g"]) == 11, "[kernels-dense] K3 gathered: expected 11 calls")
+    phase_k3g(calls["K3g"], tag="kernels-dense")
+    del calls
+    torch.cuda.empty_cache()
+    phase_train(cfg, batch, state, "train-dense", launched=("K3", "K6", "K7"),
+                idle=("K1", "K2", "K4", "K5", "K8"), per_step={"K6": 8, "K7": 3, "K3": 11})
+    del state
+    torch.cuda.empty_cache()
+    phase_routes_dense(batch, base, cfg)
+    # Serving only: on this route at the tiny widths a change of 3e-7 of the
+    # largest entry in K6's or K7's outputs (the distance of their plain
+    # versions from float64) moves the CPU path's gradients 1.8 to 46 times
+    # [agree-train]'s bounds on each of six crops tried (a near-tied
+    # choice flips; a CPU rehearsal), so the CUDA path cannot be held to
+    # the CPU path's gradients there.
+    phase_agree("agree-dense", budgets=_agree_budgets(search_impl="dense"))
+
+
+def phase_dp(work):
+    """[dp]: ``train_step_dp`` over two ranks of ``torch.distributed`` that
+    share the one card (``parallel/launch.py::dp_steps``), ``Config()`` at
+    full width, a global batch of 2 pairs (the assets pair and a crop of
+    it), a pair a rank, 3 steps.  Rank 0's stats and parameters after step 1
+    against a single-process ``train_step`` on the same batch, weights and
+    draws on the card (loss terms rtol 1e-4; parameters rtol 5e-4, atol
+    5e-5, as tests/test_parallel.py: K3's and K5's atomics vary in the last
+    bits); K1-K5 launched in each rank.  Then a one-rank NCCL group runs
+    ``main.py`` for an epoch of a fixture split: ``initialize``, the NCCL
+    path and rank 0's checkpoints on the card."""
+    import math
+    import numpy as np
+    import torch
+    import yaml
+    from pcrcg_tpu_torch import main as tmain
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, write_indoor_fixture
+    from pcrcg_tpu_torch.config import Config
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.parallel import launch
+    from pcrcg_tpu_torch.train.state import TrainState
+    from pcrcg_tpu_torch.train.step import train_step
+
+    cfg = Config()
+    src, tgt = demo_cloud_pair()
+    rot, trans = demo_pair_gt_pose()
+    n0 = cfg.budgets.points[0]
+    batch = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans),
+                             _overlap_crop(16000, 12000)], n0)
+    state_dict = init_kpfcnn(cfg, seed=1, device="cpu").state_dict()
+    gen = torch.Generator().manual_seed(3)
+    uniforms = [torch.rand(2, n0 * cfg.budgets.corr_k, generator=gen) for _ in range(3)]
+    payload = work / "dp.pt"
+    torch.save(dict(cfg=cfg, state_dict=state_dict, batch=batch, uniforms=uniforms), payload)
+    print("[dp] 2 ranks on the 1 card: NCCL takes one rank a card, so the group runs gloo "
+          "over CUDA tensors (its all_reduce goes through the host), chosen by name",
+          flush=True)
+    t0 = time.perf_counter()
+    launch.spawn(launch.dp_steps, 2, args=(str(payload), str(work / "dp_out")),
+                 init_method=f"file://{work / 'dp.rendezvous'}", device="cuda", backend="gloo",
+                 timeout=300)
+    wall = time.perf_counter() - t0
+    outs = [torch.load(work / f"dp_out.rank{r}", weights_only=False) for r in (0, 1)]
+
+    state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+    want = train_step(state, cfg, batch.map(lambda t: t.cuda()), uniforms=uniforms[0].cuda())
+    want = {k: float(v) for k, v in want.items()}
+    got = outs[0]["stats"][0]
+    stat_rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+    worst, worst_name = 0.0, ""
+    for name, p in state.model.state_dict().items():
+        a, b = outs[0]["params"][name].double(), p.detach().cpu().double()
+        excess = float(((a - b).abs() - (5e-5 + 5e-4 * b.abs())).max())
+        if excess > worst or not worst_name:
+            worst, worst_name = excess, name
+    ranks_equal = all(torch.equal(outs[0]["params"][k], outs[1]["params"][k])
+                      for k in outs[0]["params"])
+    ms = [float(np.mean(o["ms"][1:])) for o in outs]
+    print(f"[dp] {len(uniforms)} steps of a 2-pair global batch in {wall:.1f} s with start-up; "
+          f"ms a dp step (steps 2-3, host clock, two ranks sharing the card): "
+          f"{ms[0]:.1f} / {ms[1]:.1f}; launches a step by rank: "
+          + "; ".join(" ".join(f"{k} {v / len(uniforms):g}" for k, v in o["launches"].items())
+                      for o in outs)
+          + f"; step 1 vs single-process: loss terms max relative difference {stat_rel:.2e} "
+          f"(total {got['total']:.6f} vs {want['total']:.6f}), parameters worst excess over "
+          f"rtol 5e-4 / atol 5e-5 {worst:.2e} ({worst_name}); the ranks' parameters "
+          f"{'bit-identical' if ranks_equal else 'DIFFER'}", flush=True)
+    check(all(o["backend"] == "gloo" for o in outs), "[dp] backend")
+    check(stat_rel <= 1e-4, f"[dp] loss terms differ from the single-process step: {stat_rel}")
+    check(worst <= 0.0, f"[dp] parameters differ from the single-process step: {worst_name}")
+    check(ranks_equal, "[dp] the ranks' parameters differ")
+    check(all(math.isfinite(s["total"]) for o in outs for s in o["stats"]), "[dp] loss not finite")
+    for o in outs:
+        check(all(o["launches"][k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+              f"[dp] rank {o['rank']}: a kernel never launched: {o['launches']}")
+    del state
+    torch.cuda.empty_cache()
+
+    tr = write_indoor_fixture(work / "fixture", 4, seed=1, split="train")
+    va = write_indoor_fixture(work / "fixture", 2, seed=2, split="val")
+    path = work / "dp_main.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump({"model": dict(root=tr["root"], train_info=tr["info"],
+                                      val_info=va["info"], exp_dir=str(work / "dp_exp"),
+                                      max_epoch=1, num_workers=2, verbose_freq=1)}, f)
+    t0 = time.perf_counter()
+    launch.spawn(tmain.main, 1, f"file://{work / 'main.rendezvous'}",
+                 args=(["--config", str(path)],), device="cuda", timeout=300)
+    wall = time.perf_counter() - t0
+    files = sorted(p.name for p in (work / "dp_exp" / "checkpoints").iterdir())
+    with open(work / "dp_exp" / "scalars.jsonl") as f:
+        losses = [json.loads(line)["total"] for line in f if '"total"' in line]
+    print(f"[dp] main.py in a one-rank NCCL group: an epoch of 4 train and 2 val pairs in "
+          f"{wall:.1f} s with start-up, checkpoints {files}, {len(losses)} logged totals",
+          flush=True)
+    check({"epoch_0.ckpt", "best_loss.ckpt"} <= set(files), f"[dp] checkpoints: {files}")
+    check(losses and all(math.isfinite(v) for v in losses), "[dp] a logged loss is not finite")
+
+
+def slice12(repo):
+    """Phases 23-25: slice 12's paths."""
+    import torch
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose
+    from pcrcg_tpu_torch.config import Config
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+
+    src, tgt = demo_cloud_pair()
+    rot, trans = demo_pair_gt_pose()
+    batch = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
+                            Config().budgets.points[0], device="cuda")
+    phase_deformable(batch)
+    torch.cuda.empty_cache()
+    phase_dense(batch)
+    torch.cuda.empty_cache()
+    work = repo / "build" / "chip_smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        phase_dp(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def earlier_slices(repo):
+    """Phases 2-22: the paths of slices 1-11.  Returns the kernels' numbers
+    (per kernel id), their launches on their routes ([train]: K1-K5;
+    [train-untiled]: K6, K7, K3's gathered entry; [path-reduce]: K8) and
+    the device busy ms of a KITTI and a ModelNet pair and step."""
+    import torch
+    import pcrcg_tpu_torch.losses as losses_mod
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, render_pair_images
+    from pcrcg_tpu_torch.config import Config, load_config
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.models.lift import images_to
+    from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
+    from pcrcg_tpu_torch.train.state import TrainState
+
+
+    cfg = Config()
+    src, tgt = demo_cloud_pair()
+    rot, trans = demo_pair_gt_pose()
+    batch = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
+                            cfg.budgets.points[0], device="cuda")
+    model = init_kpfcnn(cfg, seed=0, device="cuda")
+    with recording_k1([(pyramid_mod, "radius_search_tiled_batch")]) as k1_calls:
+        calls = record_kernel_inputs(cfg, batch, model)
+    print(f"[kernels] recorded {len(k1_calls)} K1 and {len(calls['K2'])} K2 calls "
+          "on the full-width path", flush=True)
+    results = {"K2": phase_k2(calls["K2"])}
+    del calls
+    torch.cuda.empty_cache()
+
+    phase_path(cfg, batch, model, expect={"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0})
+    phase_agree()
+
+    state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with recording_k1([(losses_mod, "min_dist_sq_tiled"),
+                       (losses_mod, "radius_search_tiled")]) as k1_loss:
+        calls = record_backward_inputs(cfg, batch, state, gen)
+    print(f"[kernels] recorded {len(calls['K3'])} K3 and {len(calls['K5'])} K5 calls in "
+          f"the backward of one full-width train_step, and the loss's {len(k1_loss)} K1 "
+          "calls", flush=True)
+    check(len(k1_calls) == 9 and len(k1_loss) == 3,
+          f"K1: {len(k1_calls)} serving and {len(k1_loss)} loss calls, expected 9 and 3")
+    results["K1"] = phase_k1(k1_calls + k1_loss)
+    del k1_calls, k1_loss
+    if "K4" in calls:  # a tree from before K4 was folded into K3
+        results.update(K3=phase_k3_unfused(calls["K3"]), K4=phase_k4_unfused(calls["K4"]))
+        k3_ms, k4_ms = results["K3"]["ms"], results["K4"]["ms"]
+        print(f"[kernels] K3 + K4 unfused: {k3_ms:.4f} + {k4_ms:.4f} = {k3_ms + k4_ms:.4f} ms",
+              flush=True)
+    else:
+        results["K3"], results["K4"] = phase_k3_k4(calls["K3"])
+    results["K5"] = phase_k5(calls["K5"])
+    del calls
+    torch.cuda.empty_cache()
+
+    launches = phase_train(cfg, batch, state, idle=("K6", "K7", "K8"))
+    phase_agree_train()
+    del state
+    torch.cuda.empty_cache()
+
+    # The untiled routes: gathered features (K6 / K7, backward K3's
+    # gathered entry) and influence + reduce (K8, serving only).
+    cfg_u, cfg_r = cfg.replace(kpconv_tiled=False), cfg.replace(kpconv_impl="reduce")
+    model_u = init_kpfcnn(cfg_u, seed=0, device="cuda")
+    model_r = init_kpfcnn(cfg_r, seed=0, device="cuda")
+    calls = record_untiled_inputs(batch, model_u, cfg_u, model_r, cfg_r)
+    print(f"[kernels-untiled] recorded {len(calls['K6'])} K6 and {len(calls['K7'])} K7 "
+          f"calls in one untiled serving forward, {len(calls['K8'])} K8 calls in one on "
+          "the reduce route", flush=True)
+    results.update(K6=phase_k6(calls["K6"]), K7=phase_k7(calls["K7"]),
+                   K8=phase_k8(calls["K8"]))
+    del calls
+    torch.cuda.empty_cache()
+    phase_path(cfg_u, batch, model_u, "path-untiled",
+               {"K1": None, "K6": 8, "K7": 3, "K2": 0, "K8": 0})
+    reduce_launches = phase_path(cfg_r, batch, model_r, "path-reduce",
+                                 {"K1": None, "K8": 10, "K2": 0, "K6": 0, "K7": 0})
+    del model_u, model_r
+    phase_routes(batch, {"tiled": cfg, "untiled": cfg_u, "reduce": cfg_r})
+    torch.cuda.empty_cache()
+
+    state_u = TrainState(cfg_u, init_kpfcnn(cfg_u, seed=1, device="cuda"))
+    calls = record_gathered_backward_inputs(cfg_u, batch, state_u, gen)
+    print(f"[kernels-untiled] recorded {len(calls['K3g'])} calls of K3's gathered entry in "
+          "the backward of one full-width untiled train_step", flush=True)
+    results["K3g"] = phase_k3g(calls["K3g"])
+    del calls
+    torch.cuda.empty_cache()
+    untiled_launches = phase_train(cfg_u, batch, state_u, "train-untiled",
+                                   launched=("K1", "K3", "K6", "K7"),
+                                   idle=("K2", "K4", "K5", "K8"))
+    del state_u
+    torch.cuda.empty_cache()
+    phase_agree("agree-untiled", kpconv_tiled=False)
+    phase_agree_train("agree-train-untiled", kpconv_tiled=False)
+
+    # The color model of configs/train/indoor.yaml (PCRCG: ResNet-50
+    # UNet, 2 images a cloud, in_feats_dim 129, the [path] widths and
+    # budgets) on 240x320 renders of the pair.
+    phase_exact_div()
+    cfg_i = load_config(str(repo / "configs" / "train" / "indoor.yaml"))
+    check(cfg_i.image_feature and cfg_i.in_feats_dim == 129 and cfg_i.backbone2d_depth == 50
+          and cfg_i.budgets.points == cfg.budgets.points
+          and cfg_i.budgets.neighbors == cfg.budgets.neighbors
+          and cfg_i.first_feats_dim == cfg.first_feats_dim,
+          "configs/train/indoor.yaml is not the color model at the [path] width")
+    batch_i = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
+                              cfg_i.budgets.points[0], in_feats_dim=cfg_i.in_feats_dim,
+                              device="cuda")
+    images = images_to(render_pair_images(src, tgt, cfg_i.img_num, pose=(rot, trans)), "cuda")
+    model_i = init_pcrcg(cfg_i, seed=0, device="cuda")
+    calls = [c for c in record_kernel_inputs(cfg_i, batch_i, model_i, images)["K2"]
+             if c[0][6].shape[1] == cfg_i.in_feats_dim]
+    print(f"[kernels-images] recorded {len(calls)} K2 call at C = {cfg_i.in_feats_dim} "
+          "(block 0) in one serving forward of the color model", flush=True)
+    check(len(calls) == 1, "K2: no single block-0 call at C = 129")
+    phase_k2(calls, tag="kernels-images", shapes=((cfg_i.in_feats_dim, 128),))
+    phase_lift_stage(cfg_i, batch_i, model_i, images)
+    phase_path(cfg_i, batch_i, model_i, "path-images",
+               {"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0}, images=images)
+    del model_i, calls
+    torch.cuda.empty_cache()
+    state_i = TrainState(cfg_i, init_pcrcg(cfg_i, seed=1, device="cuda"))
+    batched = {k: v[None] for k, v in images.items()}
+    calls = [c for c in record_backward_inputs(cfg_i, batch_i, state_i, gen, batched)["K3"]
+             if c[0][5].shape[1] == cfg_i.in_feats_dim]
+    print(f"[kernels-images] recorded {len(calls)} K3 call at C = {cfg_i.in_feats_dim} "
+          "(block 0) in the backward of one image train_step", flush=True)
+    check(len(calls) == 1, "K3: no single block-0 call at C = 129")
+    phase_k3_k4(calls, tag="kernels-images")
+    del calls
+    phase_train(cfg_i, batch_i, state_i, "train-images", idle=("K6", "K7", "K8"),
+                images=batched, frozen="lift.backbone2d.")
+    del state_i, images, batched
+    torch.cuda.empty_cache()
+    phase_agree("agree-images", images_hw=(120, 160))
+
+    # Training and evaluation as users run them, on a split in the
+    # 3DMatch layout; then the accuracy-evidence loop.
+    work = repo / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        path, te = _fixture_config(repo, work)
+        trainer = phase_main(path)
+        phase_tester(trainer.cfg, trainer.model, te)
+        del trainer
+        torch.cuda.empty_cache()
+        phase_accuracy(work)
+        kitti_ms = phase_kitti(repo, work)
+        modelnet_ms = phase_modelnet(repo, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # Launches on each kernel's route: [train] (K1-K5), [train-untiled] (K6,
+    # K7, K3's gathered entry), [path-reduce] (K8).
+    launches.update(K3g=untiled_launches["K3"], K6=untiled_launches["K6"],
+                    K7=untiled_launches["K7"], K8=reduce_launches["K8"])
+    return results, launches, kitti_ms, modelnet_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -2364,160 +2963,13 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     torch.set_grad_enabled(False)
 
-    import pcrcg_tpu_torch.losses as losses_mod
-    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
-    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, render_pair_images
-    from pcrcg_tpu_torch.config import Config, load_config
-    from pcrcg_tpu_torch.data.pair import make_pair_batch
-    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
-    from pcrcg_tpu_torch.models.lift import images_to
-    from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
-    from pcrcg_tpu_torch.train.state import TrainState
-
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     try:
         phase_build()
-
-        cfg = Config()
-        src, tgt = demo_cloud_pair()
-        rot, trans = demo_pair_gt_pose()
-        batch = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
-                                cfg.budgets.points[0], device="cuda")
-        model = init_kpfcnn(cfg, seed=0, device="cuda")
-        with recording_k1([(pyramid_mod, "radius_search_tiled_batch")]) as k1_calls:
-            calls = record_kernel_inputs(cfg, batch, model)
-        print(f"[kernels] recorded {len(k1_calls)} K1 and {len(calls['K2'])} K2 calls "
-              "on the full-width path", flush=True)
-        results = {"K2": phase_k2(calls["K2"])}
-        del calls
-        torch.cuda.empty_cache()
-
-        phase_path(cfg, batch, model, expect={"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0})
-        phase_agree()
-
-        state = TrainState(cfg, init_kpfcnn(cfg, seed=1, device="cuda"))
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        with recording_k1([(losses_mod, "min_dist_sq_tiled"),
-                           (losses_mod, "radius_search_tiled")]) as k1_loss:
-            calls = record_backward_inputs(cfg, batch, state, gen)
-        print(f"[kernels] recorded {len(calls['K3'])} K3 and {len(calls['K5'])} K5 calls in "
-              f"the backward of one full-width train_step, and the loss's {len(k1_loss)} K1 "
-              "calls", flush=True)
-        check(len(k1_calls) == 9 and len(k1_loss) == 3,
-              f"K1: {len(k1_calls)} serving and {len(k1_loss)} loss calls, expected 9 and 3")
-        results["K1"] = phase_k1(k1_calls + k1_loss)
-        del k1_calls, k1_loss
-        if "K4" in calls:  # a tree from before K4 was folded into K3
-            results.update(K3=phase_k3_unfused(calls["K3"]), K4=phase_k4_unfused(calls["K4"]))
-            k3_ms, k4_ms = results["K3"]["ms"], results["K4"]["ms"]
-            print(f"[kernels] K3 + K4 unfused: {k3_ms:.4f} + {k4_ms:.4f} = {k3_ms + k4_ms:.4f} ms",
-                  flush=True)
-        else:
-            results["K3"], results["K4"] = phase_k3_k4(calls["K3"])
-        results["K5"] = phase_k5(calls["K5"])
-        del calls
-        torch.cuda.empty_cache()
-
-        launches = phase_train(cfg, batch, state, idle=("K6", "K7", "K8"))
-        phase_agree_train()
-        del state
-        torch.cuda.empty_cache()
-
-        # The untiled routes: gathered features (K6 / K7, backward K3's
-        # gathered entry) and influence + reduce (K8, serving only).
-        cfg_u, cfg_r = cfg.replace(kpconv_tiled=False), cfg.replace(kpconv_impl="reduce")
-        model_u = init_kpfcnn(cfg_u, seed=0, device="cuda")
-        model_r = init_kpfcnn(cfg_r, seed=0, device="cuda")
-        calls = record_untiled_inputs(batch, model_u, cfg_u, model_r, cfg_r)
-        print(f"[kernels-untiled] recorded {len(calls['K6'])} K6 and {len(calls['K7'])} K7 "
-              f"calls in one untiled serving forward, {len(calls['K8'])} K8 calls in one on "
-              "the reduce route", flush=True)
-        results.update(K6=phase_k6(calls["K6"]), K7=phase_k7(calls["K7"]),
-                       K8=phase_k8(calls["K8"]))
-        del calls
-        torch.cuda.empty_cache()
-        phase_path(cfg_u, batch, model_u, "path-untiled",
-                   {"K1": None, "K6": 8, "K7": 3, "K2": 0, "K8": 0})
-        reduce_launches = phase_path(cfg_r, batch, model_r, "path-reduce",
-                                     {"K1": None, "K8": 10, "K2": 0, "K6": 0, "K7": 0})
-        del model_u, model_r
-        phase_routes(batch, {"tiled": cfg, "untiled": cfg_u, "reduce": cfg_r})
-        torch.cuda.empty_cache()
-
-        state_u = TrainState(cfg_u, init_kpfcnn(cfg_u, seed=1, device="cuda"))
-        calls = record_gathered_backward_inputs(cfg_u, batch, state_u, gen)
-        print(f"[kernels-untiled] recorded {len(calls['K3g'])} calls of K3's gathered entry in "
-              "the backward of one full-width untiled train_step", flush=True)
-        results["K3g"] = phase_k3g(calls["K3g"])
-        del calls
-        torch.cuda.empty_cache()
-        untiled_launches = phase_train(cfg_u, batch, state_u, "train-untiled",
-                                       launched=("K1", "K3", "K6", "K7"),
-                                       idle=("K2", "K4", "K5", "K8"))
-        del state_u
-        torch.cuda.empty_cache()
-        phase_agree("agree-untiled", kpconv_tiled=False)
-        phase_agree_train("agree-train-untiled", kpconv_tiled=False)
-
-        # The color model of configs/train/indoor.yaml (PCRCG: ResNet-50
-        # UNet, 2 images a cloud, in_feats_dim 129, the [path] widths and
-        # budgets) on 240x320 renders of the pair.
-        phase_exact_div()
-        cfg_i = load_config(str(repo / "configs" / "train" / "indoor.yaml"))
-        check(cfg_i.image_feature and cfg_i.in_feats_dim == 129 and cfg_i.backbone2d_depth == 50
-              and cfg_i.budgets.points == cfg.budgets.points
-              and cfg_i.budgets.neighbors == cfg.budgets.neighbors
-              and cfg_i.first_feats_dim == cfg.first_feats_dim,
-              "configs/train/indoor.yaml is not the color model at the [path] width")
-        batch_i = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
-                                  cfg_i.budgets.points[0], in_feats_dim=cfg_i.in_feats_dim,
-                                  device="cuda")
-        images = images_to(render_pair_images(src, tgt, cfg_i.img_num, pose=(rot, trans)), "cuda")
-        model_i = init_pcrcg(cfg_i, seed=0, device="cuda")
-        calls = [c for c in record_kernel_inputs(cfg_i, batch_i, model_i, images)["K2"]
-                 if c[0][6].shape[1] == cfg_i.in_feats_dim]
-        print(f"[kernels-images] recorded {len(calls)} K2 call at C = {cfg_i.in_feats_dim} "
-              "(block 0) in one serving forward of the color model", flush=True)
-        check(len(calls) == 1, "K2: no single block-0 call at C = 129")
-        phase_k2(calls, tag="kernels-images", shapes=((cfg_i.in_feats_dim, 128),))
-        phase_lift_stage(cfg_i, batch_i, model_i, images)
-        phase_path(cfg_i, batch_i, model_i, "path-images",
-                   {"K1": None, "K2": None, "K6": 0, "K7": 0, "K8": 0}, images=images)
-        del model_i, calls
-        torch.cuda.empty_cache()
-        state_i = TrainState(cfg_i, init_pcrcg(cfg_i, seed=1, device="cuda"))
-        batched = {k: v[None] for k, v in images.items()}
-        calls = [c for c in record_backward_inputs(cfg_i, batch_i, state_i, gen, batched)["K3"]
-                 if c[0][5].shape[1] == cfg_i.in_feats_dim]
-        print(f"[kernels-images] recorded {len(calls)} K3 call at C = {cfg_i.in_feats_dim} "
-              "(block 0) in the backward of one image train_step", flush=True)
-        check(len(calls) == 1, "K3: no single block-0 call at C = 129")
-        phase_k3_k4(calls, tag="kernels-images")
-        del calls
-        phase_train(cfg_i, batch_i, state_i, "train-images", idle=("K6", "K7", "K8"),
-                    images=batched, frozen="lift.backbone2d.")
-        del state_i, images, batched
-        torch.cuda.empty_cache()
-        phase_agree("agree-images", images_hw=(120, 160))
-
-        # Training and evaluation as users run them, on a split in the
-        # 3DMatch layout; then the accuracy-evidence loop.
-        work = repo / "build" / "chip_smoke"
-        shutil.rmtree(work, ignore_errors=True)
-        work.mkdir(parents=True)
-        try:
-            path, te = _fixture_config(repo, work)
-            trainer = phase_main(path)
-            phase_tester(trainer.cfg, trainer.model, te)
-            del trainer
-            torch.cuda.empty_cache()
-            phase_accuracy(work)
-            kitti_ms = phase_kitti(repo, work)
-            modelnet_ms = phase_modelnet(repo, work)
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
+        results, launches, kitti_ms, modelnet_ms = earlier_slices(repo)
+        slice12(repo)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2527,10 +2979,6 @@ def main() -> int:
         capture_output=True, text=True, check=False,
     ).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
-    # Launches on each kernel's route: [train] (K1-K5), [train-untiled] (K6,
-    # K7, K3's gathered entry), [path-reduce] (K8).
-    launches.update(K3g=untiled_launches["K3"], K6=untiled_launches["K6"],
-                    K7=untiled_launches["K7"], K8=reduce_launches["K8"])
     entries = []
     for key, meta in KERNELS.items():
         r = results[key]

@@ -12,6 +12,13 @@ the same for a given seed whatever ``num_threads``.
 Workers touch no CUDA tensor: a batch is a ``PairBatch`` of CPU tensors
 and an image dict of CPU tensors (page-locked with ``pin_memory``), which
 the caller moves to the device (``to_device``).
+
+Data parallelism: given a ``mesh`` of more than one rank, each rank's loader
+draws the same shuffle (one seed) and yields only its rows of every global
+batch of ``batch_size`` pairs (``parallel/multihost.py::
+host_local_batch_slice``), built from its own child of the batch's
+generator, so the ranks' shards are disjoint and each is the same whatever
+the other ranks do.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from pcrcg_tpu_torch.parallel.multihost import DataMesh, host_local_batch_slice
 
 from pcrcg_tpu_torch.data.pair import PairBatch, make_pair_batch
 
@@ -46,6 +55,7 @@ class PairLoader:
         image_keys: Sequence[str] = ("colors", "depths", "world2cam", "valid_maps", "intrinsics"),
         drop_last: bool = True,
         pin_memory: bool = False,
+        mesh: Optional[DataMesh] = None,
     ):
         if not drop_last and len(dataset) % batch_size != 0:
             raise ValueError(
@@ -55,6 +65,10 @@ class PairLoader:
                 "dropped.  Use batch_size=1 (or a divisor of the split) "
                 "for evaluation."
             )
+        self.mesh = mesh
+        # This rank's rows of each global batch (all of them without a mesh).
+        self.rows = (slice(0, batch_size) if mesh is None
+                     else host_local_batch_slice(batch_size, mesh))
         self.dataset = dataset
         self.budget = budget
         self.batch_size = batch_size
@@ -106,13 +120,18 @@ class PairLoader:
         if self.shuffle:
             self.rng.shuffle(order)
         n_batches = len(self)
+        lo, hi = self.rows.start, self.rows.stop
         batches = [
-            order[i * self.batch_size : (i + 1) * self.batch_size] for i in range(n_batches)
+            order[i * self.batch_size + lo : i * self.batch_size + hi] for i in range(n_batches)
         ]
         # One generator per batch: deterministic in (seed, epoch, batch
-        # index) and safe to use from any worker thread.
+        # index) and safe to use from any worker thread; under data
+        # parallelism the rank's own child of it.
         ss = np.random.SeedSequence(entropy=(self.seed, self._epoch))
-        rngs = [np.random.default_rng(child) for child in ss.spawn(n_batches)]
+        children = ss.spawn(n_batches)
+        if self.mesh is not None and self.mesh.world_size > 1:
+            children = [c.spawn(self.mesh.world_size)[self.mesh.rank] for c in children]
+        rngs = [np.random.default_rng(child) for child in children]
         self._epoch += 1
         if self.num_threads <= 1 or n_batches <= 1:
             for b, r in zip(batches, rngs):

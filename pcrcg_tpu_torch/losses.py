@@ -16,7 +16,9 @@ the trainer's unweighted sum, lib/trainer.py:255-261), with its quirks:
 
 Ground truth is computed on the device from the GT pose: overlap by the
 tiled min-distance, circle-loss pairs by the tiled radius search (K1 on
-the card).  The sampling draws one uniform per candidate, from
+the card); with ``budgets.search_impl`` other than ``tiled`` by the dense
+``min_dist_sq`` / ``radius_search`` (pcrcg_tpu/losses.py:152-157,
+189-195).  The sampling draws one uniform per candidate, from
 ``uniforms`` when given (parity with the JAX package's draws) or from
 ``generator``.
 """
@@ -30,7 +32,7 @@ from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.geom import se3
 from pcrcg_tpu_torch.ops.masked import masked_logsumexp, pad_gather
 from pcrcg_tpu_torch.ops.matching import nearest_feature_neighbor
-from pcrcg_tpu_torch.ops.neighbors import knn_search, radius_sq
+from pcrcg_tpu_torch.ops.neighbors import knn_search, min_dist_sq, radius_search, radius_sq
 from pcrcg_tpu_torch.ops.tiled_search import min_dist_sq_tiled, radius_search_tiled
 
 
@@ -148,10 +150,15 @@ def metric_loss(inputs: LossInputs, cfg: Config, uniforms: Optional[torch.Tensor
         # exact wherever it is compared against the small radius).
         r2 = radius_sq(cfg.overlap_radius)
         m_tiles = b.m_tiles_at(0)
-        src_over = (min_dist_sq_tiled(src_warp, inputs.tgt_pcd, inputs.tgt_mask,
-                                      b.search_tile, m_tiles) <= r2) & inputs.src_mask
-        tgt_over = (min_dist_sq_tiled(inputs.tgt_pcd, src_warp, inputs.src_mask,
-                                      b.search_tile, m_tiles) <= r2) & inputs.tgt_mask
+        tiled = b.search_impl == "tiled"
+
+        def min_d2(q, s, s_mask):
+            if tiled:
+                return min_dist_sq_tiled(q, s, s_mask, b.search_tile, m_tiles)
+            return min_dist_sq(q, s, s_mask, chunk)
+
+        src_over = (min_d2(src_warp, inputs.tgt_pcd, inputs.tgt_mask) <= r2) & inputs.src_mask
+        tgt_over = (min_d2(inputs.tgt_pcd, src_warp, inputs.src_mask) <= r2) & inputs.tgt_mask
         gt_labels = torch.cat([src_over, tgt_over]).float()
         valid = torch.cat([inputs.src_mask, inputs.tgt_mask])
 
@@ -169,8 +176,12 @@ def metric_loss(inputs: LossInputs, cfg: Config, uniforms: Optional[torch.Tensor
         # of them drawn uniformly: a stable descending sort of the draws, so
         # ties keep the lower index first as lax.top_k does.
         k = b.corr_k
-        cand = radius_search_tiled(src_warp, inputs.tgt_pcd, inputs.tgt_mask,
-                                   cfg.overlap_radius, k, b.search_tile, m_tiles)
+        if tiled:
+            cand = radius_search_tiled(src_warp, inputs.tgt_pcd, inputs.tgt_mask,
+                                       cfg.overlap_radius, k, b.search_tile, m_tiles)
+        else:
+            cand = radius_search(src_warp, inputs.tgt_pcd, inputs.tgt_mask, cfg.overlap_radius,
+                                 k, chunk)
         cand_valid = (cand < m) & inputs.src_mask[:, None]
         cand_tgt = cand.clamp(max=m - 1)
         cand_dist = torch.linalg.norm(src_warp[:, None, :] - inputs.tgt_pcd[cand_tgt], dim=-1)

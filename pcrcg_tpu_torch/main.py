@@ -11,11 +11,26 @@ split, scored against its gt files), kitti (``KITTITester``) or modelnet
 (``ModelnetTester``).  Runs on CUDA unless ``--device cpu`` is given.
 KITTI reads its split lists from ``configs/kitti/{train,val,test}_kitti.txt``
 relative to the working directory, as the JAX package does.
+
+Data parallelism: ``multihost.initialize()`` runs first, as in
+pcrcg_tpu/main.py:50-53, and joins the group that a launcher describes
+(torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``, or the JAX
+package's ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``).
+With ``data_parallel: N > 1`` and no launcher, ``main`` starts the N ranks
+itself (``parallel/launch.py``, one process a card with NCCL, or gloo with
+``--device cpu``; the ranks meet through a ``file://`` rendezvous under
+``exp_dir``), so the command stays the same; it then returns None, and rank
+0 logs and writes the checkpoints under ``exp_dir``.  As in the JAX
+package, ``data_parallel`` above the number of cards raises.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+import uuid
+
+import torch
 
 from pcrcg_tpu_torch.assets import benchmark_gt_root
 from pcrcg_tpu_torch.config import Config, load_config
@@ -25,7 +40,10 @@ from pcrcg_tpu_torch.data.loader import PairLoader
 from pcrcg_tpu_torch.data.modelnet import get_modelnet_datasets
 from pcrcg_tpu_torch.eval.modelnet_metrics import ModelnetTester
 from pcrcg_tpu_torch.eval.tester import IndoorTester, KITTITester
+from pcrcg_tpu_torch.parallel import launch, multihost
 from pcrcg_tpu_torch.train.trainer import Trainer
+
+_LAUNCHER_ENV = ("WORLD_SIZE", "NUM_PROCESSES", "COORDINATOR_ADDRESS")
 
 
 def build_datasets(cfg: Config):
@@ -48,17 +66,39 @@ def build_datasets(cfg: Config):
     raise ValueError(f"Unknown dataset: {cfg.dataset}")
 
 
+def _spawn_ranks(cfg: Config, argv, device: str) -> None:
+    """Run ``main(argv)`` on ``cfg.data_parallel`` ranks of this host,
+    which meet through a fresh ``file://`` rendezvous under ``exp_dir``."""
+    if device != "cpu" and torch.cuda.device_count() < cfg.data_parallel:
+        raise ValueError(f"data_parallel={cfg.data_parallel} but {torch.cuda.device_count()} "
+                         "card(s): NCCL takes one rank a card")
+    os.makedirs(cfg.exp_dir, exist_ok=True)
+    store = os.path.abspath(os.path.join(cfg.exp_dir, f".rendezvous-{uuid.uuid4().hex}"))
+    try:
+        launch.spawn(main, cfg.data_parallel, f"file://{store}", args=(argv,), device=device)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+
+
 def main(argv=None):
     """Run the config's mode; returns the ``Trainer`` (train / val) or the
-    tester's result dict (test)."""
+    tester's result dict (test), or None where it started the ranks of a
+    data-parallel run."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--device", default="cuda")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
+    # Joins a launcher's process group; a no-op in a single process.
+    multihost.initialize(device=args.device)
     cfg = load_config(args.config)
     if cfg.mode not in ("train", "val", "test"):
         raise ValueError(f"Unknown mode: {cfg.mode}")
+    if cfg.data_parallel > 1 and not any(os.environ.get(k) for k in _LAUNCHER_ENV):
+        _spawn_ranks(cfg, argv, args.device)
+        return None
     datasets = build_datasets(cfg)
     trainer = Trainer(cfg, datasets, device=args.device)
     if cfg.mode == "train":

@@ -47,6 +47,13 @@ def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     return torch.stack([pad_gather(x[b], inds[b, :, 0], 0.0) for b in range(x.shape[0])])
 
 
+def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the points: x [B, N, C], mask [B, N] -> [B, C]
+    (reference blocks.py:106-125)."""
+    m = mask.to(x.dtype)[..., None]
+    return (x * m).sum(1) / m.sum(1).clamp_min(1.0)
+
+
 class NormBlock(nn.Module):
     """InstanceNorm over the joint src+tgt stack (every shipped config has
     use_batch_norm on; the reference's learned-bias variant is not used)."""
@@ -91,11 +98,13 @@ class SimpleBlock(nn.Module):
     """KPConv(out/2) -> norm -> LeakyReLU(0.1) (reference blocks.py:536-590)."""
 
     def __init__(self, in_dim: int, out_dim: int, radius: float, kp_extent: float,
-                 config_kp: dict, kp_seed: int = 0, ones_features: bool = False):
+                 config_kp: dict, kp_seed: int = 0, ones_features: bool = False,
+                 deformable: bool = False, modulated: bool = False):
         super().__init__()
         half = out_dim // 2
         self.KPConv = KPConv(in_dim, half, radius, kp_extent, seed=kp_seed,
-                             ones_features=ones_features, **config_kp)
+                             ones_features=ones_features, deformable=deformable,
+                             modulated=modulated, **config_kp)
         self.norm = NormBlock()
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
@@ -109,15 +118,19 @@ class ResnetBottleneckBlock(nn.Module):
     the pool neighbors when strided (reference blocks.py:593-678).  The
     strided shortcut, as pcrcg_tpu/models/blocks.py:182-229: on the tiled
     route ``max_pool_first``; on the untiled ``fused`` route the max over
-    the conv's own merged gather (K7); otherwise the dense ``max_pool``."""
+    the conv's own merged gather (K7); otherwise, and for a deformable
+    conv (which ``KPFCNN`` never hands the tiled metadata, as the JAX
+    package's), the dense ``max_pool``."""
 
     def __init__(self, in_dim: int, out_dim: int, radius: float, kp_extent: float,
-                 config_kp: dict, strided: bool = False, kp_seed: int = 0):
+                 config_kp: dict, strided: bool = False, kp_seed: int = 0,
+                 deformable: bool = False, modulated: bool = False):
         super().__init__()
         quarter = out_dim // 4
         self.strided = strided
         self.unary1 = UnaryBlock(in_dim, quarter) if in_dim != quarter else None
-        self.KPConv = KPConv(quarter, quarter, radius, kp_extent, seed=kp_seed, **config_kp)
+        self.KPConv = KPConv(quarter, quarter, radius, kp_extent, seed=kp_seed,
+                             deformable=deformable, modulated=modulated, **config_kp)
         self.norm_conv = NormBlock()
         self.unary2 = UnaryBlock(quarter, out_dim, no_relu=True)
         self.unary_shortcut = (

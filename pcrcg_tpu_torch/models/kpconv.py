@@ -23,9 +23,18 @@ tiled search's metadata (the default ``kpconv_tiled`` route) it runs the
 candidate-tile kernel, ``ops/kpconv_tiled.py::kpconv_tiled_ad`` (K2
 forward, K3 + K4 backward).  The gathers of the untiled routes are
 ``index_select``s whose backward is an ``index_add_``.
+
+Deformable (and modulated) KPConv (reference blocks.py:235-372):
+``kpconv_deformable`` is the dense formulation against per-query kernel
+points, plain PyTorch as in the JAX package (pcrcg_tpu/models/kpconv.py:
+253-334, which has no Pallas kernel for it).  Its rigid ``offset_conv``
+sub-module predicts the offsets (and modulations) on the module's route
+without the tiled metadata: K6 forward and K3's gathered entry backward on
+the card for ``fused``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -137,6 +146,45 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: floa
     return out if shortcut_x is None else (out, max_pool(shortcut_x, neighb_inds))
 
 
+def kpconv_deformable(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: float,
+                      offsets, modulations=None, influence: str = "linear",
+                      aggregation: str = "sum"):
+    """Deformable KPConv over one point set: as ``kpconv``, with the kernel
+    points of query n at ``kernel_points + offsets[n]`` (offsets [Nq, K, 3],
+    already scaled by KP_extent) and the weighted features of kernel point k
+    multiplied by ``modulations[n, k]`` when given ([Nq, K]).
+
+    The reference prunes, per query, the neighbors farther than KP_extent
+    from every deformed kernel point and re-pads them as shadows
+    (blocks.py:292-316); with static shapes their influences are zeroed and
+    they leave the neighbor count, which gives the same output for every
+    influence and aggregation."""
+    neighbors = pad_gather(s_pts, neighb_inds, fill_value=PAD_COORD) - q_pts[:, None, :]
+    deformed = kernel_points[None, :, :] + offsets  # [Nq,K,3]
+    diff = neighbors[:, :, None, :] - deformed[:, None, :, :]
+    sq_distances = (diff * diff).sum(-1)  # [Nq,H,K]
+    # The JAX package compares with kp_extent**2 rounded once to fp32.
+    in_range = (sq_distances < float(np.float32(kp_extent**2))).any(2)  # [Nq,H]
+    all_weights = influence_fn(sq_distances, kp_extent, influence)
+    if aggregation == "closest":
+        all_weights = all_weights * nn.functional.one_hot(
+            sq_distances.argmin(-1), kernel_points.shape[0]).to(all_weights.dtype)
+    elif aggregation != "sum":
+        raise ValueError(f"Unknown aggregation mode: {aggregation}")
+    all_weights = all_weights * in_range[:, :, None].to(all_weights.dtype)
+    # An index_select whose backward is an index_add_: the indexing
+    # backward of x[idx] serializes the shadows' duplicates of one row.
+    neighb_x = pad_gather_rows(x, neighb_inds)  # [Nq,H,C], shadows zero
+    weighted = torch.einsum("nhk,nhc->nkc", all_weights, neighb_x)
+    if modulations is not None:
+        weighted = weighted * modulations[:, :, None]
+    out = weighted.reshape(weighted.shape[0], -1) @ weights.reshape(-1, weights.shape[-1])
+    # The count over the pruned set: pruned rows gather zero features.
+    feat_sum = neighb_x.sum(-1) * in_range.to(neighb_x.dtype)
+    neighbor_num = (feat_sum > 0.0).sum(-1).clamp_min(1)
+    return out / neighbor_num[:, None].to(out.dtype)
+
+
 def _stack_tiled(tiled_meta, nq: int, ns: int, tile: int):
     """Stack B clouds into one candidate-tile problem: per-cloud supports
     padded to whole tiles, tile ids offset by the cloud's tile base, and
@@ -167,15 +215,19 @@ def stack_inds(neighb_inds: torch.Tensor, ns: int) -> torch.Tensor:
 
 
 class KPConv(nn.Module):
-    """Rigid KPConv over a leading cloud axis.  Parameters use the reference
-    torch key layout: ``weights`` [K, C, D] and the ``kernel_points``
-    buffer [K, 3] (each layer's own rotated/jittered disposition)."""
+    """KPConv over a leading cloud axis.  Parameters use the reference torch
+    key layout: ``weights`` [K, C, D] and the ``kernel_points`` buffer
+    [K, 3] (each layer's own rotated/jittered disposition); deformable,
+    also ``offset_conv`` (a rigid KPConv with its own disposition, seed +
+    7919, out width 3K, or 4K when modulated) and the zero-initialized
+    ``offset_bias`` (reference blocks.py:179-199)."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
                  kp_extent: float, num_kernel_points: int = 15,
                  influence: str = "linear", aggregation: str = "sum",
                  fixed: str = "center", seed: int = 0, ones_features: bool = False,
-                 tile: int = 128, impl: str = "fused"):
+                 tile: int = 128, impl: str = "fused", deformable: bool = False,
+                 modulated: bool = False):
         super().__init__()
         self.kp_extent = kp_extent
         self.influence = influence
@@ -183,9 +235,17 @@ class KPConv(nn.Module):
         self.ones_features = ones_features
         self.tile = tile
         self.impl = resolve_kpconv_impl(impl)
+        self.deformable = deformable
+        self.modulated = modulated
         kp = layer_kernel_points(radius, num_kernel_points, fixed=fixed, seed=seed)
         self.register_buffer("kernel_points", torch.from_numpy(kp))
         self.weights = nn.Parameter(torch.empty(num_kernel_points, in_channels, out_channels))
+        if deformable:
+            offset_dim = (4 if modulated else 3) * num_kernel_points
+            self.offset_conv = KPConv(
+                in_channels, offset_dim, radius, kp_extent, num_kernel_points, influence,
+                aggregation, fixed, seed + 7919, ones_features, tile, impl)
+            self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """torch kaiming_uniform_(a=√5) on [K, C, D]: bound = √(1/(C·D))."""
@@ -204,6 +264,12 @@ class KPConv(nn.Module):
         ``fused`` route."""
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
+        if self.deformable:
+            out = self._deformable(q_pts, s_pts, neighb_inds, x, neighbors_rel)
+            if shortcut_x is None:
+                return out
+            return out, max_pool(shortcut_x.reshape(b * ns, -1),
+                                 stack_inds(neighb_inds, ns)).reshape(b, nq, -1)
         if tiled_meta is not None and shortcut_x is None and self.impl == "fused":
             return self._tiled(q_pts, s_pts, x, tiled_meta)
         inds = stack_inds(neighb_inds, ns)
@@ -219,6 +285,25 @@ class KPConv(nn.Module):
             return out.reshape(b, nq, -1)
         out, shortcut = out
         return out.reshape(b, nq, -1), shortcut.reshape(b, nq, -1)
+
+    def _deformable(self, q_pts, s_pts, neighb_inds, x, neighbors_rel):
+        """Offsets (and modulations) from the rigid sub-conv, then
+        ``kpconv_deformable`` over both clouds stacked (reference
+        blocks.py:235-260: offsets scaled by KP_extent, modulations
+        2·sigmoid); the tiled metadata is not used."""
+        b, nq = q_pts.shape[:2]
+        ns = s_pts.shape[1]
+        k = self.kernel_points.shape[0]
+        feats = self.offset_conv(q_pts, s_pts, neighb_inds, x, neighbors_rel) + self.offset_bias
+        feats = feats.reshape(b * nq, -1)
+        offsets = feats[:, :3 * k].reshape(b * nq, k, 3) * self.kp_extent
+        modulations = 2.0 * torch.sigmoid(feats[:, 3 * k:]) if self.modulated else None
+        out = kpconv_deformable(
+            q_pts.reshape(b * nq, 3), s_pts.reshape(b * ns, 3), stack_inds(neighb_inds, ns),
+            x.reshape(b * ns, -1), self.kernel_points, self.weights, float(self.kp_extent),
+            offsets, modulations, self.influence, self.aggregation,
+        )
+        return out.reshape(b, nq, -1)
 
     def _tiled(self, q_pts, s_pts, x, tiled_meta):
         b, nq = q_pts.shape[:2]

@@ -8,10 +8,13 @@ feats], L2-normalized descriptors and sigmoid scores with the NaN scrub.
 
 The KPConv route comes from the config, as in the JAX package:
 ``kpconv_impl`` (``auto`` -> ``fused``) and, on ``fused``, ``kpconv_tiled``
-(candidate-tile kernels, the default) or not (gathered features, K6 / K7).
-Off the tiled route each level's rel is computed once, without gradient,
-and shared by its convs (the strided convs of ``fused`` compute theirs
-from the merged gather instead).
+(candidate-tile kernels, the default, when the pyramid comes from the
+tiled search) or not (gathered features, K6 / K7).  Off the tiled route
+each level's rel is computed once, without gradient, and shared by its
+convs (the strided convs of ``fused`` compute theirs from the merged
+gather instead).  ``*_deformable`` blocks (``deformable: True``, with
+``modulated``) run the deformable KPConv of ``models/kpconv.py``, never on
+the tiled metadata.
 
 Parameter names follow the reference torch key layout (the one
 ``pcrcg_tpu/models/torch_import.py::_kpfcnn_key_map`` reads) on every
@@ -140,8 +143,6 @@ class KPFCNN(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.deformable or any("deform" in b for b in cfg.architecture):
-            raise NotImplementedError("deformable KPConv is not ported yet")
         self.cfg = cfg
         self.plan = plan_architecture(cfg)
         config_kp = dict(
@@ -156,7 +157,8 @@ class KPFCNN(nn.Module):
         enc = []
         for block_i, bp in enumerate(self.plan.encoder):
             common = dict(radius=bp.radius, kp_extent=bp.radius * extent_ratio,
-                          config_kp=config_kp, kp_seed=bp.kp_seed)
+                          config_kp=config_kp, kp_seed=bp.kp_seed, deformable=bp.deformable,
+                          modulated=cfg.modulated)
             if bp.kind == "simple":
                 # Block 0 over the ones-column input reads validity bits.
                 ones = block_i == 0 and cfg.in_feats_dim == 1 and not cfg.image_feature
@@ -206,18 +208,18 @@ class KPFCNN(nn.Module):
             self.epsilon.fill_(-5.0)
 
     def _shared_rel(self, pyramid: Pyramid, impl: str, tiled: bool):
-        """The per-level rel [B, Nq, H, 3] of the untiled routes (neighbor
-        minus query, shadows at PAD_COORD), without gradient: conv_rel for
-        the non-strided convs; pool_rel for the strided ones, except on
-        ``fused``, whose strided convs use the merged gather."""
+        """The per-level rel [B, Nq, H, 3] (neighbor minus query, shadows at
+        PAD_COORD), without gradient, as pcrcg_tpu/models/kpfcnn.py:191-208:
+        conv_rel for the non-strided convs of a level, unless the level's
+        first one runs the candidate-tile kernel (tiled and not
+        deformable); pool_rel for the strided ones, except on ``fused``,
+        whose strided convs use the merged gather."""
 
         def rel_coords(q_pts, s_pts, neighb):
             return torch.stack([pad_gather(s_pts[b], neighb[b], PAD_COORD) - q_pts[b][:, None]
                                 for b in range(q_pts.shape[0])])
 
         conv_rel, pool_rel = {}, {}
-        if tiled:
-            return conv_rel, pool_rel
         with torch.no_grad():
             for bp in self.plan.encoder:
                 lvl = bp.layer
@@ -225,15 +227,16 @@ class KPFCNN(nn.Module):
                     pool_rel[lvl] = rel_coords(pyramid.points[lvl + 1], pyramid.points[lvl],
                                                pyramid.pools[lvl])
                 if not bp.strided and lvl not in conv_rel:
-                    conv_rel[lvl] = rel_coords(pyramid.points[lvl], pyramid.points[lvl],
-                                               pyramid.neighbors[lvl])
+                    conv_rel[lvl] = None if tiled and not bp.deformable else rel_coords(
+                        pyramid.points[lvl], pyramid.points[lvl], pyramid.neighbors[lvl])
         return conv_rel, pool_rel
 
     def forward(self, pyramid: Pyramid, features: torch.Tensor):
         cfg = self.cfg
         plan = self.plan
         impl = resolve_kpconv_impl(cfg.kpconv_impl)
-        tiled = impl == "fused" and cfg.kpconv_tiled
+        # The dense search route's pyramid carries no tile-local metadata.
+        tiled = impl == "fused" and cfg.kpconv_tiled and bool(pyramid.conv_local)
         conv_rel, pool_rel = self._shared_rel(pyramid, impl, tiled)
         # 1. joint encoder
         x = features
@@ -242,14 +245,17 @@ class KPFCNN(nn.Module):
             if block_i in plan.encoder_skips:
                 skip_x.append(x)
             lvl = bp.layer
+            # A deformable conv never takes the tiled metadata (its offset
+            # sub-conv and its shortcut run off the tiled route).
+            use_meta = tiled and not bp.deformable
             if bp.strided:
                 q_pts, q_mask = pyramid.points[lvl + 1], pyramid.masks[lvl + 1]
                 neighb, rel = pyramid.pools[lvl], pool_rel.get(lvl)
-                tmeta = pyramid.pool_local[lvl] if tiled else None
+                tmeta = pyramid.pool_local[lvl] if use_meta else None
             else:
                 q_pts, q_mask = pyramid.points[lvl], pyramid.masks[lvl]
                 neighb, rel = pyramid.neighbors[lvl], conv_rel.get(lvl)
-                tmeta = pyramid.conv_local[lvl] if tiled else None
+                tmeta = pyramid.conv_local[lvl] if use_meta else None
             x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask, pyramid.masks[lvl],
                       rel, tiled_meta=tmeta)
 

@@ -4,7 +4,9 @@ checkpoints.
 ``state_dict_from_jax`` turns the JAX ``KPFCNN`` variables (a nested dict
 of numpy arrays, ``{"params", "constants"}``) into this package's
 ``KPFCNN.state_dict()``, kernel points included, with the transposes of
-``pcrcg_tpu/models/torch_import.py::export_kpfcnn_state_dict``: flax Dense
+``pcrcg_tpu/models/torch_import.py::export_kpfcnn_state_dict`` (a
+deformable conv's ``offset_conv`` weights and kernel points and its
+``offset_bias`` under the reference's names): flax Dense
 kernels [in, out] become Linear weights [out, in] (or 1x1 conv weights
 [out, in, 1] / [out, in, 1, 1]).  ``pcrcg_state_dict_from_jax`` does the
 same for the JAX ``PCRCG`` (``params`` under ``lift/backbone2d`` and
@@ -36,8 +38,10 @@ def _emit(out: Dict[str, np.ndarray], path, value: np.ndarray) -> None:
         i = head.split("_")[1]
         blk = ("encoder_blocks." if head[0] == "e" else "decoder_blocks.") + i
         rest = path[1:]
-        if rest in (("KPConv", "weights"), ("KPConv", "kernel_points")):
-            out[f"{blk}.KPConv.{rest[1]}"] = value
+        if rest[0] == "KPConv" and rest[-1] in ("weights", "kernel_points", "offset_bias"):
+            # The deformable conv's offset sub-conv and bias keep the
+            # reference torch names (KPConv.offset_conv.*, KPConv.offset_bias).
+            out[f"{blk}.{'.'.join(rest)}"] = value
         elif rest[-2:] == ("mlp", "kernel"):
             out[f"{blk}.{'.'.join(rest[:-2] + ('mlp',))}.weight"] = value.T
         else:
@@ -87,10 +91,8 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     for path, value in _leaves(variables["params"]):
         _emit(out, path, value)
-    for blk, sub in variables.get("constants", {}).items():
-        out[f"encoder_blocks.{blk.split('_')[1]}.KPConv.kernel_points"] = np.array(
-            sub["KPConv"]["kernel_points"], np.float32
-        )
+    for path, value in _leaves(variables.get("constants", {})):
+        _emit(out, path, value)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
 

@@ -1,13 +1,15 @@
 """Where the time of one pair, or of one training step, goes on the card.
 
-    python -m pcrcg_tpu_torch.profile [--pairs 5] [--route untiled] [--out profile.json]
+    python -m pcrcg_tpu_torch.profile [--pairs 5] [--route untiled|reduce|deformable|dense]
+        [--out profile.json]
     python -m pcrcg_tpu_torch.profile --train [--pairs 3] [--out train.json]
     python -m pcrcg_tpu_torch.profile --images [--train] [--out images.json]
 
 Drives the in-repo assets pair at the default ``Config()`` (full width,
 seeded random weights) on the KPConv route ``--route`` names (``tiled``,
 the default; ``untiled``: ``kpconv_tiled: false``; ``reduce``:
-``kpconv_impl: reduce``, serving only); with ``--images``, the color model
+``kpconv_impl: reduce``, serving only; ``deformable``: ``deformable`` and
+``modulated`` on; ``dense``: ``search_impl: dense``); with ``--images``, the color model
 of ``configs/train/indoor.yaml`` (``PCRCG``: ResNet-50 UNet, 2 images a
 cloud, in_feats_dim 129, the same widths and budgets) on 240×320 renders
 of the pair (``assets.py::render_pair_images``).  It reports, per pair
@@ -30,6 +32,7 @@ Needs CUDA.  Prints a JSON object and writes it to ``--out`` if given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -57,8 +60,14 @@ from pcrcg_tpu_torch.train.state import TrainState
 from pcrcg_tpu_torch.train.step import loss_from_outputs, train_step
 
 
-# The KPConv routes (the Config fields that select them).
-ROUTES = {"tiled": {}, "untiled": dict(kpconv_tiled=False), "reduce": dict(kpconv_impl="reduce")}
+# The KPConv routes and model variants (the Config fields that select them).
+ROUTES = {
+    "tiled": lambda c: c,
+    "untiled": lambda c: c.replace(kpconv_tiled=False),
+    "reduce": lambda c: c.replace(kpconv_impl="reduce"),
+    "deformable": lambda c: c.replace(deformable=True, modulated=True),
+    "dense": lambda c: c.replace(budgets=dataclasses.replace(c.budgets, search_impl="dense")),
+}
 IMAGE_CONFIG = REPO_ROOT / "configs" / "train" / "indoor.yaml"
 
 
@@ -171,8 +180,7 @@ def main(argv=None):
     kernels.build_all()
     torch.set_grad_enabled(False)
 
-    cfg = (load_config(str(IMAGE_CONFIG)) if args.images else Config()).replace(
-        **ROUTES[args.route])
+    cfg = ROUTES[args.route](load_config(str(IMAGE_CONFIG)) if args.images else Config())
     src, tgt = demo_cloud_pair()
     rot, trans = demo_pair_gt_pose()
     sample = dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)

@@ -7,9 +7,19 @@ the pairs; here it runs eagerly, pair by pair, and each pair's backward
 runs right after its forward (the gradient of the batch mean is the sum
 of the pairs' gradients over B), so only one pair's activations live at a
 time.  Stats are means over the pairs, ``max_*`` stats maxima.  The
-pyramid carries no gradient.  On the default (tiled) KPConv route the
-backward reaches K3 / K4 through every encoder KPConv and K5 through every
-strided shortcut; with ``kpconv_tiled: false`` it reaches K3's gathered
+pyramid carries no gradient.
+
+``train_step_dp`` / ``eval_step_dp`` are the data-parallel twins
+(pcrcg_tpu/train/step.py:148-242): each rank of ``torch.distributed`` runs
+the same per-pair body on its shard of the global batch, then the
+gradients are averaged over the ranks (one ``all_reduce`` over one flat
+buffer, divided by the world size: the mean over the global batch) and
+the stats too (``max_*``: the maximum), so every rank applies the same
+update and takes the same finite-gradient decision.  Pair i of the global
+batch gets the same sampling draws whichever rank holds it.
+
+On the default (tiled) KPConv route the backward reaches K3 / K4 through
+every encoder KPConv and K5 through every strided shortcut; with ``kpconv_tiled: false`` it reaches K3's gathered
 entry through every KPConv (K6 / K7 forward), and the gathers' own
 backward is an ``index_add_``.  ``kpconv_impl: reduce`` serves only.
 """
@@ -18,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.data.pair import PairBatch
@@ -27,7 +38,9 @@ from pcrcg_tpu_torch.models.kpconv import resolve_kpconv_impl
 from pcrcg_tpu_torch.models.lift import images_to
 from pcrcg_tpu_torch.models.pcrcg import refuse_image_feature
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+from pcrcg_tpu_torch.parallel.multihost import global_data_mesh, host_local_batch_slice
 from pcrcg_tpu_torch.train.state import TrainState
+from pcrcg_tpu_torch.utils.packing import pack_pytree
 
 
 def forward_pair(model, cfg: Config, points, masks, features, images=None,
@@ -126,17 +139,108 @@ def train_step(state: TrainState, cfg: Config, batch: PairBatch,
     not finite; ``state.step`` advances either way).  ``images``: the
     batch's image dict, every leaf with the pair-batch axis first.  Returns
     the stats."""
-    if resolve_kpconv_impl(cfg.kpconv_impl) == "reduce":
-        raise NotImplementedError(
-            "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
-            " has no backward, and the JAX package defines no VJP for it"
-        )
+    _refuse_reduce(cfg)
     state.zero_grad()
     with torch.enable_grad():
         stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator, backward=True,
                                   images=images)
     state.apply_gradients()
     return stats
+
+
+def _refuse_reduce(cfg: Config) -> None:
+    if resolve_kpconv_impl(cfg.kpconv_impl) == "reduce":
+        raise NotImplementedError(
+            "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
+            " has no backward, and the JAX package defines no VJP for it"
+        )
+
+
+def _all_reduce_mean(tensors, world: int) -> None:
+    """Average ``tensors`` (in place) over the ranks: one SUM over one flat
+    buffer per dtype, in a fixed layout, divided by ``world``."""
+    pack, unpack = pack_pytree(list(tensors))
+    packed = pack(list(tensors))
+    for flat in packed.values():
+        dist.all_reduce(flat)
+        flat.div_(world)
+    for t, r in zip(tensors, unpack(packed)):
+        t.copy_(r)
+
+
+def _reduce_stats(stats: Dict[str, torch.Tensor], world: int) -> Dict[str, torch.Tensor]:
+    """The ranks' stats combined: means averaged, ``max_*`` maxima."""
+    keys = sorted(stats)
+    means = [k for k in keys if not k.startswith("max_")]
+    maxes = [k for k in keys if k.startswith("max_")]
+    out = {}
+    for names, op in ((means, dist.ReduceOp.SUM), (maxes, dist.ReduceOp.MAX)):
+        if not names:
+            continue
+        buf = torch.stack([stats[k].float() for k in names])
+        dist.all_reduce(buf, op=op)
+        if op == dist.ReduceOp.SUM:
+            buf = buf / world
+        out.update(zip(names, buf.unbind()))
+    return out
+
+
+def _shard_draws(cfg: Config, batch: PairBatch, uniforms: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """This rank's rows of the global batch's sampling draws [B, N0·corr_k]:
+    ``uniforms`` holds the global batch's draws; else every rank draws them
+    all from ``generator`` (one shared stream) and keeps its rows."""
+    mesh = global_data_mesh()
+    n_pairs = batch.points.shape[0] * mesh.world_size
+    if uniforms is None:
+        if generator is None:
+            return None
+        n_draws = batch.points.shape[2] * cfg.budgets.corr_k
+        uniforms = torch.rand(n_pairs, n_draws, generator=generator, device=generator.device)
+    if uniforms.shape[0] != n_pairs:
+        raise ValueError(f"uniforms hold {uniforms.shape[0]} pairs' draws; the global "
+                         f"batch has {n_pairs}")
+    return uniforms[host_local_batch_slice(n_pairs, mesh)].to(batch.points.device)
+
+
+def train_step_dp(state: TrainState, cfg: Config, batch: PairBatch,
+                  uniforms: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  images=None) -> Dict[str, torch.Tensor]:
+    """``train_step`` over the ranks of ``torch.distributed``: ``batch`` (and
+    ``images``) is this rank's shard of the global batch, ``uniforms`` the
+    GLOBAL batch's draws [B, N0·corr_k] (or drawn from ``generator``, the
+    same stream on every rank).  The gradients and stats are averaged over
+    the ranks before the finite check and the update, so every rank's
+    parameters stay equal.  Returns the global stats."""
+    _refuse_reduce(cfg)
+    world = dist.get_world_size()
+    draws = _shard_draws(cfg, batch, uniforms, generator)
+    state.zero_grad()
+    with torch.enable_grad():
+        stats = _stats_over_pairs(state.model, cfg, batch, draws, generator, backward=True,
+                                  images=images)
+    with torch.no_grad():
+        grads = []
+        for p in state.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        _all_reduce_mean(grads, world)
+        stats = _reduce_stats(stats, world)
+    state.apply_gradients()
+    return stats
+
+
+@torch.no_grad()
+def eval_step_dp(state: TrainState, cfg: Config, batch: PairBatch,
+                 uniforms: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 images=None) -> Dict[str, torch.Tensor]:
+    """The data-parallel twin of ``eval_step``: the global stats."""
+    draws = _shard_draws(cfg, batch, uniforms, generator)
+    stats = _stats_over_pairs(state.model, cfg, batch, draws, generator, images=images)
+    return _reduce_stats(stats, dist.get_world_size())
 
 
 @torch.no_grad()

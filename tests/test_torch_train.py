@@ -52,14 +52,15 @@ HEADS = dict(node_overlap=True, quaternion=True)
 _ROT, _TRANS = demo_pair_gt_pose()
 ROT, TRANS = _ROT.astype(np.float32), _TRANS.astype(np.float32)
 
-def overlap_crop(n_src=256, n_tgt=240):
-    """The n nearest points of each cloud around one point of their overlap."""
+def overlap_crop(n_src=256, n_tgt=240, at=0.5):
+    """The n nearest points of each cloud around one point of their overlap
+    (the overlapping source point at quantile ``at`` of their order)."""
     from scipy.spatial import cKDTree
 
     src, tgt = demo_cloud_pair()
     dist, _ = cKDTree(tgt).query(src @ ROT.T + TRANS)
     overlap = np.flatnonzero(dist < 0.0375)
-    center = src[overlap[len(overlap) // 2]]
+    center = src[overlap[int(len(overlap) * at)]]
 
     def near(p, c, n):
         return p[np.argsort(((p - c) ** 2).sum(1), kind="stable")[:n]]
@@ -68,10 +69,11 @@ def overlap_crop(n_src=256, n_tgt=240):
                 tgt_pcd=near(tgt, center @ ROT.T + TRANS, n_tgt), rot=ROT, trans=TRANS)
 
 
-def jax_setup(**cfg_overrides):
-    """JAX config, batch, pyramid + overflow, model and variables (numpy)."""
-    jc = jcfg.tiny_test_config(budgets=jcfg.Budgets(**BUDGETS), **HEADS, **cfg_overrides)
-    batch = j_make_pair_batch([overlap_crop()], jc.budgets.points[0])
+def jax_setup(at=0.5, **cfg_overrides):
+    """JAX config, batch (``overlap_crop(at=at)``), pyramid + overflow,
+    model and variables (numpy)."""
+    jc = jcfg.tiny_test_config(budgets=jcfg.Budgets(**BUDGETS), **{**HEADS, **cfg_overrides})
+    batch = j_make_pair_batch([overlap_crop(at=at)], jc.budgets.points[0])
     pyr, overflow = jax.jit(lambda p, m: j_build_pyramid_cfg(jc, p, m, with_overflow=True))(
         batch.points[0], batch.masks[0])
     model = JKPFCNN(jc)
@@ -79,9 +81,10 @@ def jax_setup(**cfg_overrides):
     return jc, batch, (pyr, overflow), model, jax.tree_util.tree_map(np.asarray, variables)
 
 
-def jax_value_and_grad(jc, batch, pyramid, model, variables):
+def jax_value_and_grad(jc, batch, pyramid, model, variables, with_outputs=False):
     """jit(value_and_grad) of the JAX ``pair_loss`` on a given pyramid (one
-    pair; its key is the first of ``split(key, 1)``, as the JAX step draws)."""
+    pair; its key is the first of ``split(key, 1)``, as the JAX step draws).
+    ``with_outputs``: the aux is (stats, the model's outputs)."""
     pyr, overflow = pyramid
     points, masks = batch.points[0], batch.masks[0]
 
@@ -95,22 +98,25 @@ def jax_value_and_grad(jc, batch, pyramid, model, variables):
             scores_saliency=jnp.concatenate([out["scores_saliency"][0],
                                              out["scores_saliency"][1]]),
         )
-        extras = dict(node_overlap_score_pred=out["node_overlap_score_pred"],
-                      nodes=pyr.points[-1], node_masks=pyr.masks[-1],
-                      quaternion_pred=out["quaternion_pred"], trans_pred=out["trans_pred"],
-                      quaternion_gt=j_so3.quaternion_from_matrix(batch.rot[0]))
+        extras = {}
+        if jc.node_overlap:
+            extras.update(node_overlap_score_pred=out["node_overlap_score_pred"],
+                          nodes=pyr.points[-1], node_masks=pyr.masks[-1])
+        if jc.quaternion:
+            extras.update(quaternion_pred=out["quaternion_pred"], trans_pred=out["trans_pred"],
+                          quaternion_gt=j_so3.quaternion_from_matrix(batch.rot[0]))
         stats = j_metric_loss(inputs, jc, jax.random.split(key, 1)[0], extras)
         stats["max_overflow"] = jnp.maximum(jnp.max(overflow), 0).astype(jnp.float32)
-        return stats["total"], stats
+        return stats["total"], ((stats, out) if with_outputs else stats)
 
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
 
 
-def port_setup(variables, steps_per_epoch=1, **cfg_overrides):
-    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**BUDGETS), **HEADS, **cfg_overrides)
+def port_setup(variables, steps_per_epoch=1, at=0.5, **cfg_overrides):
+    tc = tcfg.tiny_test_config(budgets=tcfg.Budgets(**BUDGETS), **{**HEADS, **cfg_overrides})
     model = KPFCNN(tc)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
-    batch = make_pair_batch([overlap_crop()], tc.budgets.points[0])
+    batch = make_pair_batch([overlap_crop(at=at)], tc.budgets.points[0])
     return tc, TrainState(tc, model, steps_per_epoch), batch
 
 

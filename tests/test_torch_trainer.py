@@ -205,16 +205,16 @@ def test_tester_refuses_an_incomplete_split(split):
 
 
 def test_trainer_guards(split, tmp_path, monkeypatch):
-    """data_parallel > 1 raises; overflow_action 'error' raises at the first
-    step whose pyramid drops voxels (level budgets far below occupancy);
-    the KITTI datasets build (split lists under configs/kitti of the
-    working directory)."""
+    """data_parallel beyond the ranks at hand raises (here one process, no
+    process group: ``main.py`` or torchrun starts the ranks); overflow_action
+    'error' raises at the first step whose pyramid drops voxels (level
+    budgets far below occupancy); the KITTI datasets build (split lists
+    under configs/kitti of the working directory)."""
     _, model, _ = split
     cfg = load_config(_write_yaml(tmp_path / "g.yaml", **{**model,
                                                           "exp_dir": str(tmp_path / "g")}))
     datasets = {"val": load_split(cfg, "val")}
-    with pytest.raises(NotImplementedError, match=r"multi-device \(`torch.distributed`\) is "
-                                                  "not ported yet"):
+    with pytest.raises(ValueError, match=r"data_parallel=2 but only 1 rank"):
         Trainer(cfg.replace(data_parallel=2), datasets, device="cpu")
     small = tcfg.Budgets(points=(448, 64, 64, 64), neighbors=(16,) * 4, corr_k=8,
                          query_chunk=64, search_tile=32, search_m_tiles=4)
