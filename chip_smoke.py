@@ -164,6 +164,25 @@ Phases, each printed as it completes:
                5e-5), the ranks' parameters bit-identical, K1-K5 launched in
                each rank, ms a dp step; then ``main.py`` for an epoch of a
                fixture split in a one-rank NCCL group (checkpoints, losses).
+26. kernels-cloud — K1-K5 as a rank of the cloud ('model') axis launches
+               them, one cloud a launch: K1 in the 9 searches of the
+               source cloud's pyramid (idx and lidx equal to the plain
+               chain), K2 in its encoder, K3 with K4's scatter and K5 in
+               that encoder's backward, each against its plain version and
+               timed with its bound, as in 2.
+27. cloud    — ``train_step_dp`` on ``make_mesh(1, 2)``: two gloo ranks
+               sharing the card, a cloud of the assets pair each,
+               ``Config()``, 3 steps: step 1 against the single-process
+               ``train_step`` (loss terms rtol 1e-4; the encoder's, GCN's,
+               decoder's and heads' parameters each rtol 5e-4 / atol 5e-5),
+               the ranks bit-identical, K1-K5 launched in each rank; ms a
+               step beside the single-process step's, exchanges a step,
+               peak GiB a rank.
+28. cloud-dp — 27 on the 2 x 2 mesh: four ranks, [dp]'s two pairs, a pair
+               a data row, 2 steps.
+29. cloud-images — 27 for the color model of ``configs/train/indoor.yaml``
+               (each rank lifts its own cloud's 240×320 renders), 1 step;
+               the frozen backbone unchanged.
 
 Then it prints the wall time, the card's ``name, power.limit``, one JSON
 line with every kernel's numbers (launches: K1-K5 from [train], K6 / K7 and K3's gathered
@@ -2784,6 +2803,198 @@ def slice12(repo):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_kernels_cloud(cfg, batch):
+    """[kernels-cloud]: the kernels as a rank of the cloud axis launches
+    them, one cloud a launch (B = 1).  K1 in the 9 searches of the assets
+    pair's source cloud's pyramid at ``Config()``, against its plain chain
+    (idx and lidx equal); K2 in that cloud's encoder, K3 with K4's scatter
+    and K5 in its backward (of Σ x·r over the bottleneck features, r
+    seeded), against their plain versions at the tolerances of [kernels];
+    each timed with its bound, as there."""
+    import torch
+    import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+
+    model = init_kpfcnn(cfg, seed=1, device="cuda")
+    points, masks, feats = batch.points[0][:1], batch.masks[0][:1], batch.features[0][:1]
+    with recording_k1([(pyramid_mod, "radius_search_tiled_batch")]) as k1_calls:
+        pyramid = pyramid_mod.build_pyramid_cfg(cfg, points, masks)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def run():
+        with torch.enable_grad():
+            x = model.encode(pyramid, feats)[0]
+            (x * torch.randn(x.shape, generator=gen, device="cuda")).sum().backward()
+
+    calls = record_calls(run, {"K2": (kt_mod, "kpconv_tiled"), "K3": (kt_mod, "kpconv_tiled_bwd"),
+                               "K5": (kt_mod, "maxpool_bwd")})
+    counts = dict(K1=len(k1_calls), **{k: len(v) for k, v in calls.items()})
+    print(f"[kernels-cloud] one cloud (B = 1, {int(masks.sum())} points): recorded "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + " calls (its pyramid; its encoder's forward and backward)", flush=True)
+    check(counts == dict(K1=9, K2=11, K3=11, K5=3), f"[kernels-cloud] calls: {counts}")
+    check(all(a[7] == 1 for _, a in k1_calls), "[kernels-cloud] a K1 call stacks two clouds")
+    results = dict(K1=phase_k1(k1_calls, tag="kernels-cloud"),
+                   K2=phase_k2(calls["K2"], tag="kernels-cloud"))
+    results["K3"] = phase_k3_k4(calls["K3"], tag="kernels-cloud")[0]
+    results["K5"] = phase_k5(calls["K5"], tag="kernels-cloud")
+    del calls, k1_calls, pyramid, model
+    torch.cuda.empty_cache()
+    print("[kernels-cloud] " + "; ".join(
+        f"{k} {r['ms']:.4f} ms over {counts[k]} calls, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms" for k, r in results.items()),
+        flush=True)
+    return results
+
+
+# Parameter groups by name prefix; the rest are the heads.
+CLOUD_GROUPS = {"encoder_blocks.": "encoder", "gnn.": "GCN", "decoder_blocks.": "decoder"}
+
+
+def phase_cloud(tag, work, cfg, batch, state_dict, uniforms, images=None):
+    """[cloud*]: ``train_step_dp`` on the cloud axis (``make_mesh(n_data,
+    2)``, ``parallel/launch.py::dp_steps``): ``2 · n_data`` gloo ranks
+    sharing the card (NCCL takes a card a rank), a pair a data row, one step
+    per entry of ``uniforms``.  Rank 0's stats and parameters after step 1
+    against a single-process ``train_step`` on the same batch, weights and
+    draws on the card (loss terms rtol 1e-4; parameters rtol 5e-4 / atol
+    5e-5, the worst of each group apart: encoder, GCN, decoder, heads);
+    every rank's parameters bit-identical; K1-K5 launched in every rank; a
+    frozen backbone unchanged.  Prints ms a step (host clock, steps 2 on)
+    and peak GiB a rank."""
+    import math
+    import numpy as np
+    import torch
+    from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
+    from pcrcg_tpu_torch.models.pcrcg import PCRCG
+    from pcrcg_tpu_torch.parallel import launch
+    from pcrcg_tpu_torch.train.state import TrainState
+    from pcrcg_tpu_torch.train.step import train_step
+
+    n_data = batch.points.shape[0]
+    world = 2 * n_data
+    payload = work / f"{tag}.pt"
+    torch.save(dict(cfg=cfg, state_dict=state_dict, batch=batch, uniforms=uniforms,
+                    images=images, n_model=2), payload)
+    t0 = time.perf_counter()
+    launch.spawn(launch.dp_steps, world, args=(str(payload), str(work / tag)),
+                 init_method=f"file://{work / (tag + '.rendezvous')}", device="cuda",
+                 backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    outs = [torch.load(work / f"{tag}.rank{r}", weights_only=False) for r in range(world)]
+
+    model = (PCRCG if cfg.image_feature else KPFCNN)(cfg)
+    model.load_state_dict(state_dict)
+    state = TrainState(cfg, model.cuda().eval())
+    kw = {} if images is None else dict(images={k: v.cuda() for k, v in images.items()})
+    want = train_step(state, cfg, batch.map(lambda t: t.cuda()), uniforms=uniforms[0].cuda(),
+                      **kw)
+    want = {k: float(v) for k, v in want.items()}
+    got = outs[0]["stats"][0]
+    stat_rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+    worst = {}
+    frozen_same = True
+    for name, p in state.model.state_dict().items():
+        a, b = outs[0]["params"][name].double(), p.detach().cpu().double()
+        if name.startswith("lift."):
+            frozen_same &= torch.equal(outs[0]["params"][name], state_dict[name])
+            continue
+        short = name.removeprefix("kpfcnn.")
+        group = next((g for p, g in CLOUD_GROUPS.items() if short.startswith(p)), "heads")
+        excess = float(((a - b).abs() - (5e-5 + 5e-4 * b.abs())).max())
+        if group not in worst or excess > worst[group][0]:
+            worst[group] = (excess, name)
+    ranks_equal = all(torch.equal(o["params"][k], outs[0]["params"][k])
+                      for o in outs[1:] for k in outs[0]["params"])
+    stats_equal = all(o["stats"] == outs[0]["stats"] for o in outs[1:])
+    steps = len(uniforms)
+    # The single-process step alone on the card, warm, for scale.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in uniforms[1:] or uniforms:
+        train_step(state, cfg, batch.map(lambda t: t.cuda()), uniforms=u.cuda(), **kw)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / len(uniforms[1:] or uniforms)
+    ms = [float(np.mean(o["ms"][1:] or o["ms"])) for o in outs]
+    print(f"[{tag}] {world} ranks ({n_data} x 2) on the 1 card, gloo over CUDA tensors: "
+          f"{steps} steps of a {n_data}-pair batch in {wall:.1f} s with start-up; ms a step "
+          f"({'steps 2-' + str(steps) if steps > 1 else 'its one step, warm-up included'}, "
+          "host clock): " + " / ".join(f"{m:.1f}" for m in ms)
+          + f" (the single-process step alone, warm: {single_ms:.1f})"
+          + "; peak GiB a rank: " + " / ".join(f"{o['peak_gib']:.2f}" for o in outs)
+          + "; exchanges a step by rank: "
+          + "; ".join(" ".join(f"{k} {v / steps:g}" for k, v in o["exchanges"].items())
+                      for o in outs)
+          + "; launches a step by rank: "
+          + "; ".join(" ".join(f"{k} {v / steps:g}" for k, v in o["launches"].items())
+                      for o in outs)
+          + f"; step 1 vs single-process: loss terms max relative difference {stat_rel:.2e} "
+          f"(total {got['total']:.6f} vs {want['total']:.6f}); parameters' worst excess over "
+          f"rtol 5e-4 / atol 5e-5 by group: "
+          + ", ".join(f"{g} {e:.2e} ({n})" for g, (e, n) in worst.items())
+          + f"; the ranks' parameters {'bit-identical' if ranks_equal else 'DIFFER'}, their "
+          f"stats {'bit-identical' if stats_equal else 'differ in the last bits'}"
+          + ("" if images is None else
+             f"; backbone2d {'unchanged' if frozen_same else 'CHANGED'}"), flush=True)
+    check(all(o["backend"] == "gloo" and o["n_model"] == 2 for o in outs), f"[{tag}] mesh")
+    check(stat_rel <= 1e-4, f"[{tag}] loss terms differ from the single-process step: {stat_rel}")
+    check(set(worst) == {*CLOUD_GROUPS.values(), "heads"}, f"[{tag}] parameter groups: {worst}")
+    for group, (excess, name) in worst.items():
+        check(excess <= 0.0, f"[{tag}] {group} parameters differ from the single-process step: "
+                             f"{name} {excess}")
+    check(ranks_equal, f"[{tag}] the ranks' parameters differ")
+    check(frozen_same, f"[{tag}] the frozen backbone moved")
+    check(all(math.isfinite(s["total"]) for o in outs for s in o["stats"]),
+          f"[{tag}] loss not finite")
+    for o in outs:
+        check(all(o["launches"][k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+              f"[{tag}] rank {o['rank']}: a kernel never launched: {o['launches']}")
+    del state, model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, single_ms=single_ms, peak_gib=[o["peak_gib"] for o in outs],
+                launches=[{k: v / steps for k, v in o["launches"].items()} for o in outs])
+
+
+def slice13(repo):
+    """Phases 26-29: the cloud ('model') mesh axis."""
+    import torch
+    from pcrcg_tpu_torch.assets import demo_cloud_pair, demo_pair_gt_pose, render_pair_images
+    from pcrcg_tpu_torch.config import Config, load_config
+    from pcrcg_tpu_torch.data.pair import make_pair_batch
+    from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
+    from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
+
+    cfg = Config()
+    n0 = cfg.budgets.points[0]
+    src, tgt = demo_cloud_pair()
+    rot, trans = demo_pair_gt_pose()
+    pair = dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)
+    batch = make_pair_batch([pair], n0)
+    phase_kernels_cloud(cfg, batch.map(lambda t: t.cuda()))
+
+    work = repo / "build" / "chip_smoke_cloud"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(3)
+    draws = lambda b, n: [torch.rand(b, n0 * cfg.budgets.corr_k, generator=gen)  # noqa: E731
+                          for _ in range(n)]
+    try:
+        state_dict = init_kpfcnn(cfg, seed=1, device="cpu").state_dict()
+        phase_cloud("cloud", work, cfg, batch, state_dict, draws(1, 3))
+        batch2 = make_pair_batch([pair, _overlap_crop(16000, 12000)], n0)
+        phase_cloud("cloud-dp", work, cfg, batch2, state_dict, draws(2, 2))
+        cfg_i = load_config(str(repo / "configs" / "train" / "indoor.yaml"))
+        batch_i = make_pair_batch([pair], cfg_i.budgets.points[0],
+                                  in_feats_dim=cfg_i.in_feats_dim)
+        images = render_pair_images(src, tgt, cfg_i.img_num, pose=(rot, trans))
+        images = {k: torch.as_tensor(v)[None] for k, v in images.items()}
+        state_dict = init_pcrcg(cfg_i, seed=1, device="cpu").state_dict()
+        phase_cloud("cloud-images", work, cfg_i, batch_i, state_dict, draws(1, 1), images)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def earlier_slices(repo):
     """Phases 2-22: the paths of slices 1-11.  Returns the kernels' numbers
     (per kernel id), their launches on their routes ([train]: K1-K5;
@@ -2970,6 +3181,7 @@ def main() -> int:
         phase_build()
         results, launches, kitti_ms, modelnet_ms = earlier_slices(repo)
         slice12(repo)
+        slice13(repo)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -3,8 +3,11 @@
 Features are [B, N, C] with B the cloud axis (src/tgt) and a bool mask
 [B, N].  The reference's "BatchNormBlock" is an InstanceNorm1d over the
 joint src+tgt stack without affine (reference blocks.py:448,459-462); here
-that is a masked per-channel normalization over both leading axes.
-Module and parameter names follow the reference torch key layout.
+that is a masked per-channel normalization over both leading axes.  On
+the cloud mesh axis a rank holds one cloud (B = 1) and every block takes
+the axis's ``psum`` (``parallel/cloud.py``), so the norm's statistics are
+still those of the joint stack.  Module and parameter names follow the
+reference torch key layout.
 """
 from __future__ import annotations
 
@@ -56,10 +59,11 @@ def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class NormBlock(nn.Module):
     """InstanceNorm over the joint src+tgt stack (every shipped config has
-    use_batch_norm on; the reference's learned-bias variant is not used)."""
+    use_batch_norm on; the reference's learned-bias variant is not used);
+    ``psum`` sums its statistics with the other cloud's rank."""
 
-    def forward(self, x, mask):
-        return masked_instance_norm(x, mask, dim=(0, 1))
+    def forward(self, x, mask, psum=None):
+        return masked_instance_norm(x, mask, dim=(0, 1), psum=psum)
 
 
 class UnaryBlock(nn.Module):
@@ -71,8 +75,8 @@ class UnaryBlock(nn.Module):
         self.norm = NormBlock()
         self.no_relu = no_relu
 
-    def forward(self, x, mask):
-        x = self.norm(self.mlp(x), mask)
+    def forward(self, x, mask, psum=None):
+        x = self.norm(self.mlp(x), mask, psum)
         return x if self.no_relu else F.leaky_relu(x, 0.1)
 
 
@@ -83,7 +87,7 @@ class LastUnaryBlock(nn.Module):
         super().__init__()
         self.mlp = nn.Linear(in_dim, out_dim, bias=False)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, psum=None):
         return self.mlp(x)
 
 
@@ -108,9 +112,9 @@ class SimpleBlock(nn.Module):
         self.norm = NormBlock()
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
-                tiled_meta=None):
+                tiled_meta=None, psum=None):
         x = self.KPConv(q_pts, s_pts, neighb_inds, x, neighbors_rel, tiled_meta=tiled_meta)
-        return F.leaky_relu(self.norm(x, q_mask), 0.1)
+        return F.leaky_relu(self.norm(x, q_mask, psum), 0.1)
 
 
 class ResnetBottleneckBlock(nn.Module):
@@ -138,8 +142,8 @@ class ResnetBottleneckBlock(nn.Module):
         )
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
-                tiled_meta=None):
-        y = self.unary1(x, s_mask) if self.unary1 is not None else x
+                tiled_meta=None, psum=None):
+        y = self.unary1(x, s_mask, psum) if self.unary1 is not None else x
         if self.strided and tiled_meta is not None:
             y = self.KPConv(q_pts, s_pts, neighb_inds, y, tiled_meta=tiled_meta)
             shortcut = max_pool_first(x, neighb_inds)
@@ -148,8 +152,8 @@ class ResnetBottleneckBlock(nn.Module):
         else:
             y = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel, tiled_meta=tiled_meta)
             shortcut = x
-        y = F.leaky_relu(self.norm_conv(y, q_mask), 0.1)
-        y = self.unary2(y, q_mask)
+        y = F.leaky_relu(self.norm_conv(y, q_mask, psum), 0.1)
+        y = self.unary2(y, q_mask, psum)
         if self.unary_shortcut is not None:
-            shortcut = self.unary_shortcut(shortcut, q_mask)
+            shortcut = self.unary_shortcut(shortcut, q_mask, psum)
         return F.leaky_relu(y + shortcut, 0.1)

@@ -16,6 +16,13 @@ gather instead).  ``*_deformable`` blocks (``deformable: True``, with
 ``modulated``) run the deformable KPConv of ``models/kpconv.py``, never on
 the tiled metadata.
 
+On the cloud ('model') mesh axis (``forward(..., cloud=)``,
+``parallel/cloud.py``) a rank holds one cloud: the pyramid and
+``features`` are its own (B = 1), the norms sum their statistics with the
+other rank, the bottleneck runs on both clouds from gathered features, the
+decoder on its own cloud, and the outputs come back gathered: the same
+[2, ...] outputs as in one process.
+
 Parameter names follow the reference torch key layout (the one
 ``pcrcg_tpu/models/torch_import.py::_kpfcnn_key_map`` reads) on every
 route, so ``models/weights.py::state_dict_from_jax`` output loads with
@@ -24,7 +31,7 @@ route, so ``models/weights.py::state_dict_from_jax`` output loads with
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,6 +50,7 @@ from pcrcg_tpu_torch.models.gcn import GCN, Conv1x1
 from pcrcg_tpu_torch.models.kpconv import KPConv, resolve_kpconv_impl
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, masked_softmax, pad_gather
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
+from pcrcg_tpu_torch.parallel.cloud import CloudAxis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +147,9 @@ class KPFCNN(nn.Module):
     """Forward over one pair: ``pyramid`` (ops/pyramid.py) and ``features``
     [2, N0, in_feats_dim] -> dict with feats_f [2, N0, final_feats_dim]
     (L2-normalized), scores_overlap [2, N0], scores_saliency [2, N0] (and the
-    node-overlap / quaternion heads when configured)."""
+    node-overlap / quaternion heads when configured).  With ``cloud`` the
+    pyramid and features are this rank's cloud alone [1, ...], and the
+    outputs are the same both clouds' [2, ...]."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -231,14 +241,16 @@ class KPFCNN(nn.Module):
                         pyramid.points[lvl], pyramid.points[lvl], pyramid.neighbors[lvl])
         return conv_rel, pool_rel
 
-    def forward(self, pyramid: Pyramid, features: torch.Tensor):
+    def encode(self, pyramid: Pyramid, features: torch.Tensor, psum=None):
+        """The joint encoder over the pyramid's clouds (with ``psum``, the
+        cloud axis's: this rank's cloud, its norms summed over the axis) ->
+        (bottleneck features [B, Nc, C], the decoder's skips)."""
         cfg = self.cfg
         plan = self.plan
         impl = resolve_kpconv_impl(cfg.kpconv_impl)
         # The dense search route's pyramid carries no tile-local metadata.
         tiled = impl == "fused" and cfg.kpconv_tiled and bool(pyramid.conv_local)
         conv_rel, pool_rel = self._shared_rel(pyramid, impl, tiled)
-        # 1. joint encoder
         x = features
         skip_x = []
         for block_i, (bp, block) in enumerate(zip(plan.encoder, self.encoder_blocks)):
@@ -257,12 +269,24 @@ class KPFCNN(nn.Module):
                 neighb, rel = pyramid.neighbors[lvl], conv_rel.get(lvl)
                 tmeta = pyramid.conv_local[lvl] if use_meta else None
             x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask, pyramid.masks[lvl],
-                      rel, tiled_meta=tmeta)
+                      rel, tiled_meta=tmeta, psum=psum)
+        return x, skip_x
+
+    def forward(self, pyramid: Pyramid, features: torch.Tensor,
+                cloud: Optional[CloudAxis] = None):
+        cfg = self.cfg
+        plan = self.plan
+        psum = None if cloud is None else cloud.psum
+        # 1. joint encoder
+        x, skip_x = self.encode(pyramid, features, psum)
 
         # 2. bottleneck projection + GNN between the clouds
         mask_c = pyramid.masks[-1]
         pts_c = pyramid.points[-1]
         feats_c = self.bottle(x)
+        if cloud is not None:  # every rank of the axis runs it on both clouds
+            mask_c, pts_c = cloud.gather(mask_c), cloud.gather(pts_c)
+            feats_c = cloud.gather(feats_c)
         src_c, tgt_c = self.gnn(pts_c[0], pts_c[1], feats_c[0], feats_c[1],
                                 mask_c[0], mask_c[1])
         feats_c = self.proj_gnn(torch.stack([src_c, tgt_c]))
@@ -278,13 +302,18 @@ class KPFCNN(nn.Module):
 
         # 4. decoder over [raw score, saliency, gnn feats] (reference :565)
         x = torch.cat([scores_c_raw, scores_saliency_c, feats_c], dim=-1)
+        if cloud is not None:  # the decoder runs on this rank's cloud
+            x = cloud.own(x)
         for block_i, (bp, block) in enumerate(zip(plan.decoder, self.decoder_blocks)):
             if block_i in plan.decoder_concats:
                 x = torch.cat([x, skip_x.pop()], dim=-1)
             if bp.kind == "upsample":
                 x = block(x, pyramid.upsamples[bp.layer - 1])
             else:
-                x = block(x, pyramid.masks[bp.layer])
+                x = block(x, pyramid.masks[bp.layer], psum)
+        mask_0 = pyramid.masks[0]
+        if cloud is not None:
+            x, mask_0 = cloud.gather(x), cloud.gather(mask_0)
 
         d = cfg.final_feats_dim
         scrub = lambda s: torch.nan_to_num(s, nan=0.0, posinf=0.0, neginf=0.0)  # noqa: E731
@@ -300,7 +329,7 @@ class KPFCNN(nn.Module):
             t = self.folding1(res["feats_f"])
             quat = masked_l2_normalize(self.linear1(t))
             trans = self.linear2(t)
-            w = torch.cat([pyramid.masks[0][0], pyramid.masks[0][1]]).to(quat.dtype)[:, None]
+            w = torch.cat([mask_0[0], mask_0[1]]).to(quat.dtype)[:, None]
             denom = w.sum().clamp_min(1.0)
             res["quaternion_pred"] = (quat.reshape(-1, 4) * w).sum(0) / denom
             res["trans_pred"] = (trans.reshape(-1, 3) * w).sum(0) / denom

@@ -23,6 +23,7 @@ from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
 from pcrcg_tpu_torch.models.lift import ImageLift
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
+from pcrcg_tpu_torch.parallel.cloud import CloudAxis
 
 
 def refuse_image_feature(cfg: Config, images: Optional[Mapping]) -> None:
@@ -37,7 +38,10 @@ def refuse_image_feature(cfg: Config, images: Optional[Mapping]) -> None:
 class PCRCG(nn.Module):
     """``forward(pyramid, features, images)`` -> KPFCNN's outputs; with
     ``image_feature`` the lift's features replace ``features``.
-    ``images`` holds ``models/lift.py::IMAGE_KEYS`` (one pair)."""
+    ``images`` holds ``models/lift.py::IMAGE_KEYS`` (one pair).  On the
+    cloud axis (``cloud``, see ``KPFCNN``) the pyramid, features and images
+    are this rank's cloud's: the lift is per cloud (the frozen backbone
+    normalizes each image alone), so a rank lifts its own cloud."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -49,13 +53,13 @@ class PCRCG(nn.Module):
         self.kpfcnn = KPFCNN(cfg)
 
     def forward(self, pyramid: Pyramid, features: torch.Tensor,
-                images: Optional[Mapping] = None):
+                images: Optional[Mapping] = None, cloud: Optional[CloudAxis] = None):
         refuse_image_feature(self.cfg, images)
         if self.cfg.image_feature:
             features = self.lift(pyramid.points[0], pyramid.masks[0], images["colors"],
                                  images["depths"], images["world2cam"], images["valid_maps"],
                                  images["intrinsics"])
-        return self.kpfcnn(pyramid, features)
+        return self.kpfcnn(pyramid, features, cloud)
 
 
 def init_pcrcg(cfg: Config, seed: int = 0, device=None) -> PCRCG:

@@ -6,6 +6,8 @@ tensors hold values in [0, N] where N is the shadow index.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 # Shadow coordinate for pad points (reference models/blocks.py:269).
@@ -46,13 +48,26 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim, keepdim: bool = False)
     return total / count
 
 
-def masked_instance_norm(x: torch.Tensor, mask: torch.Tensor, dim, eps: float = 1e-5):
+def masked_instance_norm(x: torch.Tensor, mask: torch.Tensor, dim, eps: float = 1e-5,
+                         psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """Per-channel normalization over the masked ``dim`` dims (torch
     InstanceNorm with affine=False, biased variance), restricted to real
-    rows; pad rows come out zero.  x: [..., C]; mask: x's leading dims."""
+    rows; pad rows come out zero.  x: [..., C]; mask: x's leading dims.
+
+    ``psum`` (the cloud axis, ``parallel/cloud.py``): x holds one part of
+    the rows and ``psum`` sums a tensor over the parts, so the statistics
+    are those of all the parts' rows, in the same two passes: the count
+    and the sum for the mean, then the sum of (x − mean)²."""
     m = mask.to(x.dtype)[..., None]
-    mean = masked_mean(x, m, dim=dim, keepdim=True)
-    var = masked_mean((x - mean) ** 2, m, dim=dim, keepdim=True)
+    if psum is None:
+        mean = masked_mean(x, m, dim=dim, keepdim=True)
+        var = masked_mean((x - mean) ** 2, m, dim=dim, keepdim=True)
+    else:
+        count = torch.sum(m.expand(x.shape), dim=dim, keepdim=True)
+        total, count = psum(torch.cat([torch.sum(x * m, dim=dim, keepdim=True), count])).chunk(2)
+        count = count.clamp_min(1.0)
+        mean = total / count
+        var = psum(torch.sum((x - mean) ** 2 * m, dim=dim, keepdim=True)) / count
     normed = (x - mean) / torch.sqrt(var + eps)
     return normed * m
 

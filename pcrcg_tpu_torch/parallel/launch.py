@@ -6,7 +6,8 @@ name, so a target lives in this package) that join one ``torch.distributed``
 group through ``parallel/multihost.py::initialize`` and call ``target``.
 ``main.py`` uses it for ``data_parallel: N`` when no launcher started the
 ranks; ``dp_steps`` is the data-parallel step run on a saved batch that the
-CPU tests and ``chip_smoke.py`` hold against the single-process step.
+CPU tests and ``chip_smoke.py`` hold against the single-process step, on
+the 'data' axis and on the cloud ('model') axis.
 """
 from __future__ import annotations
 
@@ -59,14 +60,26 @@ def dp_steps(payload_path: str, out_path: str) -> None:
     """A rank's part of the data-parallel check: ``payload_path`` (a
     ``torch.save``) holds the config, the model's state dict, the GLOBAL
     batch (CPU), the global draws of each step (``uniforms``: a list of
-    [B, N0·corr_k]), ``images`` or None, and optionally ``eval_uniforms``.
-    The rank builds the model on its device, takes its shard
-    (``parallel/mesh.py``), runs ``eval_step_dp`` on the given weights (with
-    ``eval_uniforms``), then ``train_step_dp`` once per entry of
-    ``uniforms`` with the kernels' launch counts zeroed just before; it
-    writes ``<out_path>.rank<r>``: the eval stats, the stats of every step,
-    the parameters after step 1, the launches and host ms a step."""
+    [B, N0·corr_k]), ``images`` or None, and optionally ``n_model`` (the
+    cloud axis, default 1), ``eval_uniforms``, ``norm_probe`` and
+    ``nan_grad``.  The rank builds the model on its device, takes its shard
+    on ``make_mesh(n_model=n_model)`` (``parallel/mesh.py``), runs
+    ``eval_step_dp`` on the given weights (with ``eval_uniforms``), then
+    ``train_step_dp`` once per entry of ``uniforms`` with the kernels'
+    launch and exchange counts (``parallel/cloud.py``) zeroed just before;
+    it writes ``<out_path>.rank<r>``: the eval stats, the stats of every
+    step, the parameters after step 1, the launches and exchanges over the
+    steps, host ms a step and, on the card, peak GiB.
+
+    ``norm_probe`` (dict of ``x`` [2, N, C], ``mask`` [2, N], ``w``
+    [2, N, C]): first, this rank's cloud of ``x`` through a ``NormBlock``
+    on the cloud axis, and the gradient of Σ y·w on the axis's ranks
+    (``out["norm_probe"]``: y and dx of its cloud).  ``nan_grad`` ((rank,
+    parameter name)): that rank's gradient of that parameter is made NaN
+    in every step, a fault the steps must agree to skip."""
     from pcrcg_tpu_torch import kernels
+    from pcrcg_tpu_torch.models.blocks import NormBlock
+    from pcrcg_tpu_torch.parallel import cloud
     from pcrcg_tpu_torch.models.pcrcg import PCRCG
     from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
     from pcrcg_tpu_torch.parallel.mesh import make_mesh, replicate, shard_images
@@ -76,33 +89,48 @@ def dp_steps(payload_path: str, out_path: str) -> None:
 
     payload = torch.load(payload_path, weights_only=False)
     cfg = payload["cfg"]
-    mesh = make_mesh()
+    mesh = make_mesh(n_model=payload.get("n_model", 1))
+    out = {"stats": [], "ms": []}
+    probe = payload.get("norm_probe")
+    if probe is not None:
+        x, mask, w = (mesh.cloud.own(probe[k]).to(mesh.device) for k in ("x", "mask", "w"))
+        x.requires_grad_(True)
+        with torch.enable_grad():
+            y = NormBlock()(x, mask, mesh.cloud.psum)
+            (y * w).sum().backward()
+        out["norm_probe"] = (y.detach().cpu(), x.grad.cpu())
     model = (PCRCG if cfg.image_feature else KPFCNN)(cfg)
     model.load_state_dict(payload["state_dict"])
     model = model.to(mesh.device).eval()
     state = replicate(TrainState(cfg, model), mesh)
+    if payload.get("nan_grad") is not None and payload["nan_grad"][0] == mesh.rank:
+        param = model.get_parameter(payload["nan_grad"][1])
+        param.register_hook(lambda g: torch.full_like(g, float("nan")))
     batch = shard_pair_batch(payload["batch"], mesh).map(lambda t: t.to(mesh.device))
     images = payload.get("images")
     if images is not None:
         images = {k: v.to(mesh.device)
                   for k, v in shard_images(images, mesh, payload["batch"].points.shape[0]).items()}
-    out = {"stats": [], "ms": []}
     eval_uniforms = payload.get("eval_uniforms")
     if eval_uniforms is not None:  # on the weights as given
-        ev = eval_step_dp(state, cfg, batch, uniforms=eval_uniforms, images=images)
+        ev = eval_step_dp(state, cfg, batch, uniforms=eval_uniforms, images=images, mesh=mesh)
         out["eval"] = {k: float(v) for k, v in ev.items()}
     kernels.reset_launches()
+    cloud.reset_exchanges()
     for i, uniforms in enumerate(payload["uniforms"]):
         if mesh.device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = train_step_dp(state, cfg, batch, uniforms=uniforms, images=images)
+        stats = train_step_dp(state, cfg, batch, uniforms=uniforms, images=images, mesh=mesh)
         stats = {k: float(v) for k, v in stats.items()}
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["stats"].append(stats)
         if i == 0:
             out["params"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     out["launches"] = dict(kernels.LAUNCHES)
+    out["exchanges"] = dict(cloud.EXCHANGES)
     out["rank"], out["world_size"], out["backend"] = mesh.rank, mesh.world_size, mesh.backend
-    out["device"] = str(mesh.device)
+    out["device"], out["n_model"] = str(mesh.device), mesh.n_model
+    if mesh.device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     torch.save(out, f"{out_path}.rank{mesh.rank}")

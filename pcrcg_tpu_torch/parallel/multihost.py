@@ -14,6 +14,11 @@ ranks:
      sharding and the step's draws all take), so raw fragments never cross
      processes.
 
+:func:`cloud_mesh` adds the cloud ('model') axis: ``n_data × n_model``
+ranks, rank ``d · n_model + m`` holding cloud ``m`` of the pairs of data
+row ``d`` (JAX's row-major ``reshape(n_data, n_model)``), so both ranks
+of a row load the same pairs (``parallel/cloud.py``).
+
 ``initialize`` reads the JAX package's variables (``COORDINATOR_ADDRESS``,
 ``NUM_PROCESSES``, ``PROCESS_ID``) or torchrun's (``MASTER_ADDR`` /
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  The backend is
@@ -25,24 +30,42 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
+from pcrcg_tpu_torch.parallel.cloud import CloudAxis
+
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The ranks of a data-parallel run: the pair batch's 'data' axis."""
+    """The ranks of a data-parallel run: the pair batch's 'data' axis and,
+    with ``cloud``, the cloud ('model') axis of each pair."""
 
     world_size: int
     rank: int
     device: torch.device
     backend: Optional[str] = None  # None: a single process, no group
+    cloud: Optional[CloudAxis] = None  # None: every rank holds both clouds
+    data_group: Any = None  # the ranks holding this rank's cloud (None: every rank)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def n_model(self) -> int:
+        return 1 if self.cloud is None else self.cloud.size
+
+    @property
+    def n_data(self) -> int:
+        return self.world_size // self.n_model
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's row of the 'data' axis: which pairs it loads."""
+        return self.rank // self.n_model
 
 
 _MESH: Optional[DataMesh] = None
@@ -133,23 +156,42 @@ def global_data_mesh(device=None) -> DataMesh:
     return DataMesh(1, 0, torch.device("cuda" if device is None else device))
 
 
+def cloud_mesh(n_model: int, device=None) -> DataMesh:
+    """The ``(n_data, n_model)`` mesh over every rank of the initialized
+    group (``n_data = world / n_model``): a model group per data row, a
+    data group per model column.  Collective: every rank calls it, in the
+    same order (``dist.new_group``)."""
+    mesh = global_data_mesh(device)
+    if mesh.world_size % n_model != 0:
+        raise ValueError(f"{mesh.world_size} rank(s) do not split into n_model={n_model}")
+    n_data = mesh.world_size // n_model
+    d, m = divmod(mesh.rank, n_model)
+    model_groups = [dist.new_group([r * n_model + c for c in range(n_model)])
+                    for r in range(n_data)]
+    data_groups = [dist.new_group([r * n_model + c for r in range(n_data)])
+                   for c in range(n_model)]
+    return dataclasses.replace(mesh, cloud=CloudAxis(m, n_model, model_groups[d]),
+                               data_group=data_groups[m])
+
+
 def host_local_batch_slice(global_batch_size: int, mesh: Optional[DataMesh] = None) -> slice:
-    """The rows of the GLOBAL pair batch this rank loads."""
+    """The rows of the GLOBAL pair batch this rank loads (by its data row:
+    the ranks of a row's cloud axis load the same pairs)."""
     mesh = mesh or global_data_mesh()
-    if global_batch_size % mesh.world_size != 0:
+    if global_batch_size % mesh.n_data != 0:
         raise ValueError(f"global batch size {global_batch_size} not divisible by the "
-                         f"process count {mesh.world_size}")
-    per = global_batch_size // mesh.world_size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+                         f"data-parallel process count {mesh.n_data}")
+    per = global_batch_size // mesh.n_data
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
 
 
 def global_pair_batch(local_tree, mesh: DataMesh, global_batch_size: int):
     """This rank's shard of the global batch, on its device: each leaf's
-    leading axis must be the shard's (``global_batch_size / world``).  In
+    leading axis must be the shard's (``global_batch_size / n_data``).  In
     PyTorch the global batch exists only as the ranks' shards, so this
     checks and places the shard (the JAX package assembles a global array
     from them)."""
-    per = global_batch_size // mesh.world_size
+    per = global_batch_size // mesh.n_data
 
     def put(x):
         if x is None:

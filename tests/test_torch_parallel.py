@@ -16,7 +16,9 @@ batch's ``max_overflow`` is one pair's, not the mean).
   the JAX weights carried across and the JAX draws: every stat rtol 1e-4.
 * ``max_*`` stats take the maximum over the ranks; a non-finite gradient on
   one rank skips the update on both.
-* ``make_mesh(n_model=2)`` raises; ``main.py`` with ``data_parallel: 2``
+* ``make_mesh`` in one process refuses ``n_model=2`` (two ranks needed;
+  the cloud axis itself: ``tests/test_torch_cloud.py``) and ``n_model=3``;
+  ``main.py`` with ``data_parallel: 2``
   starts its two ranks, trains two steps of a fixture split, writes the
   checkpoints from rank 0 alone, and resumes from one; on the card it
   refuses more ranks than cards before starting any.
@@ -170,8 +172,10 @@ def test_finite_gate_agrees_across_ranks(run):
 
 
 def test_mesh_and_shards_in_one_process():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_mesh(n_model=2)
+    with pytest.raises(ValueError, match="1 rank"):
+        make_mesh(n_model=2, device="cpu")
+    with pytest.raises(ValueError, match="n_model=3"):
+        make_mesh(n_model=3, device="cpu")
     mesh = make_mesh(device="cpu")
     assert mesh.world_size == 1 and mesh.rank == 0 and mesh.device.type == "cpu"
     with pytest.raises(ValueError, match="1 rank"):
