@@ -1,0 +1,10 @@
+"""models/kpfcnn.py forward in a step (with the backbone and lift of the color
+model): host ms a step of the forward stage of the program's own entry
+(register_pair / train_step), each boundary marked by a forward hook or a
+wrapper that syncs the device (the traced run's marked units)."""
+
+
+def read(t):
+    if t["unit"] != "step":
+        return None
+    return t["spans_ms"].get("forward")

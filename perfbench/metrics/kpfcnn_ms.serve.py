@@ -1,0 +1,10 @@
+"""models/kpfcnn.py forward (encoder, GCN, decoder): host ms a pair of the
+kpfcnn stage of the program's own entry (register_pair / train_step), each
+boundary marked by a forward hook or a wrapper that syncs the device (the
+traced run's marked units)."""
+
+
+def read(t):
+    if t["unit"] != "pair":
+        return None
+    return t["spans_ms"].get("kpfcnn")
