@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pcrcg_tpu_torch.ops.masked import PAD_COORD
+from pcrcg_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -114,50 +115,52 @@ def make_pair_batch(
     rows (reference datasets/indoor.py:179-180) unless ``features``
     [B,2,N,Cin] is given.  Each cloud's real rows are Z-ordered for
     search-tile locality; the raw clouds take the same row selection and
-    order, so rows stay aligned."""
-    bsz = len(samples)
-    pts = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32)
-    msk = np.zeros((bsz, 2, budget), bool)
-    rot = np.zeros((bsz, 3, 3), np.float32)
-    trans = np.zeros((bsz, 3), np.float32)
-    has_raw = "raw_src_pcd" in samples[0]
-    raw = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32) if has_raw else None
-    for i, s in enumerate(samples):
-        src = np.asarray(s["src_pcd"], np.float32)
-        tgt = np.asarray(s["tgt_pcd"], np.float32)
-        sel_src = subsample_to_budget(src.shape[0], budget, rng)
-        sel_tgt = subsample_to_budget(tgt.shape[0], budget, rng)
-        pts[i, 0], msk[i, 0] = pad_cloud(src, budget, select=sel_src)
-        pts[i, 1], msk[i, 1] = pad_cloud(tgt, budget, select=sel_tgt)
-        if has_raw:
-            raw[i, 0] = pad_cloud(np.asarray(s["raw_src_pcd"], np.float32), budget,
-                                  select=sel_src)[0]
-            raw[i, 1] = pad_cloud(np.asarray(s["raw_tgt_pcd"], np.float32), budget,
-                                  select=sel_tgt)[0]
-        for c in range(2):
-            n = int(msk[i, c].sum())
-            if n > 1:
-                order = _np_morton_order(pts[i, c, :n])
-                pts[i, c, :n] = pts[i, c, :n][order]
-                if has_raw:
-                    raw[i, c, :n] = raw[i, c, :n][order]
-        rot[i] = np.asarray(s["rot"], np.float32).reshape(3, 3)
-        trans[i] = np.asarray(s["trans"], np.float32).reshape(3)
-    if features is None:
-        feats = np.where(msk[..., None], 1.0, 0.0).astype(np.float32)
-        feats = np.tile(feats, (1, 1, 1, in_feats_dim))
-    else:
-        feats = np.asarray(features, np.float32)
-    extras = {k: torch.from_numpy(np.stack([np.asarray(s[k], np.float32) for s in samples]))
-              for k in extra_keys if k in samples[0]}
-    dev = torch.device(device)
-    batch = PairBatch(
-        points=torch.from_numpy(pts),
-        masks=torch.from_numpy(msk),
-        features=torch.from_numpy(feats),
-        rot=torch.from_numpy(rot),
-        trans=torch.from_numpy(trans),
-        raw_points=torch.from_numpy(raw) if has_raw else None,
-        extras=extras or None,
-    )
-    return batch.map(lambda t: t.to(dev))
+    order, so rows stay aligned.  Traced (``utils/profiling.py``) as the
+    stage ``batch``, numbered as the unit that takes the batch next."""
+    with stage("batch"):
+        bsz = len(samples)
+        pts = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32)
+        msk = np.zeros((bsz, 2, budget), bool)
+        rot = np.zeros((bsz, 3, 3), np.float32)
+        trans = np.zeros((bsz, 3), np.float32)
+        has_raw = "raw_src_pcd" in samples[0]
+        raw = np.full((bsz, 2, budget, 3), PAD_COORD, np.float32) if has_raw else None
+        for i, s in enumerate(samples):
+            src = np.asarray(s["src_pcd"], np.float32)
+            tgt = np.asarray(s["tgt_pcd"], np.float32)
+            sel_src = subsample_to_budget(src.shape[0], budget, rng)
+            sel_tgt = subsample_to_budget(tgt.shape[0], budget, rng)
+            pts[i, 0], msk[i, 0] = pad_cloud(src, budget, select=sel_src)
+            pts[i, 1], msk[i, 1] = pad_cloud(tgt, budget, select=sel_tgt)
+            if has_raw:
+                raw[i, 0] = pad_cloud(np.asarray(s["raw_src_pcd"], np.float32), budget,
+                                      select=sel_src)[0]
+                raw[i, 1] = pad_cloud(np.asarray(s["raw_tgt_pcd"], np.float32), budget,
+                                      select=sel_tgt)[0]
+            for c in range(2):
+                n = int(msk[i, c].sum())
+                if n > 1:
+                    order = _np_morton_order(pts[i, c, :n])
+                    pts[i, c, :n] = pts[i, c, :n][order]
+                    if has_raw:
+                        raw[i, c, :n] = raw[i, c, :n][order]
+            rot[i] = np.asarray(s["rot"], np.float32).reshape(3, 3)
+            trans[i] = np.asarray(s["trans"], np.float32).reshape(3)
+        if features is None:
+            feats = np.where(msk[..., None], 1.0, 0.0).astype(np.float32)
+            feats = np.tile(feats, (1, 1, 1, in_feats_dim))
+        else:
+            feats = np.asarray(features, np.float32)
+        extras = {k: torch.from_numpy(np.stack([np.asarray(s[k], np.float32) for s in samples]))
+                  for k in extra_keys if k in samples[0]}
+        dev = torch.device(device)
+        batch = PairBatch(
+            points=torch.from_numpy(pts),
+            masks=torch.from_numpy(msk),
+            features=torch.from_numpy(feats),
+            rot=torch.from_numpy(rot),
+            trans=torch.from_numpy(trans),
+            raw_points=torch.from_numpy(raw) if has_raw else None,
+            extras=extras or None,
+        )
+        return batch.map(lambda t: t.to(dev))

@@ -39,6 +39,7 @@ from pcrcg_tpu_torch.registration.ransac import (
 )
 from pcrcg_tpu_torch.registration.sampling import weighted_sample_topk
 from pcrcg_tpu_torch.train.step import forward_pair
+from pcrcg_tpu_torch.utils.profiling import span, stage, unit_span
 
 
 @torch.no_grad()
@@ -72,46 +73,59 @@ def register_pair(
     Returns a dict with transform [3,4], fitness, inlier_rmse and the
     model outputs; with the GT ``rot`` / ``trans`` also the inlier ratios
     without / with the mutual check at 0.1 m over the sampled points and
-    the pair's FMR flags [3] at 0.05 / 0.1 / 0.2 m."""
+    the pair's FMR flags [3] at 0.05 / 0.1 / 0.2 m.
+
+    Traced (``utils/profiling.py``) as the unit ``register_pair``: the
+    stages ``pyramid``, ``backbone_lift`` (color), ``kpfcnn`` and
+    ``registration`` (sampling to RANSAC's return, in the parts
+    ``registration.sampling``, ``.matching`` and ``.ransac``)."""
     refuse_image_feature(cfg, images)
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev != dev and not (model_dev.type == dev.type == "cuda" and dev.index is None):
         raise ValueError(f"the model is on {model_dev}, the pair runs on {dev}")
-    points, masks, features = (t.to(dev) for t in (points, masks, features))
-    if uniforms is not None:
-        uniforms = [u.to(dev) for u in uniforms]
-    if picks is not None:
-        picks = picks.to(dev)
-    out = forward_pair(model, cfg, points, masks, features, images)[0]
-    scores = out["scores_overlap"] * out["scores_saliency"]
-    u_src, u_tgt = uniforms if uniforms is not None else (None, None)
-    src_idx, src_ok = weighted_sample_topk(scores[0], masks[0], n_points, generator, u_src)
-    tgt_idx, tgt_ok = weighted_sample_topk(scores[1], masks[1], n_points, generator, u_tgt)
-    s_pts, s_feats = points[0][src_idx], out["feats_f"][0][src_idx]
-    t_pts, t_feats = points[1][tgt_idx], out["feats_f"][1][tgt_idx]
-    corr, valid = feature_correspondences(s_feats, t_feats, src_ok, tgt_ok, mutual=mutual)
-    res = ransac_pose(
-        s_pts, t_pts, corr, valid,
-        distance_threshold=distance_threshold, ransac_n=ransac_n,
-        num_iterations=num_iterations, hypothesis_chunk=hypothesis_chunk,
-        generator=generator, picks=picks,
-    )
-    result = {
-        "transform": res.transform,
-        "fitness": res.fitness,
-        "inlier_rmse": res.inlier_rmse,
-        "outputs": out,
-    }
-    if rot is not None and trans is not None:
-        ir = inlier_ratio(s_pts, t_pts, s_feats, t_feats, rot.to(dev), trans.to(dev),
-                          src_ok, tgt_ok, inlier_distance_threshold=0.1)
-        result["inlier_ratio_wo_mutual"] = ir["inlier_ratio_wo_mutual"]
-        result["inlier_ratio_w_mutual"] = ir["inlier_ratio_w_mutual"]
-        # A pair "recalls" when its inlier ratio clears 0.05 (reference
-        # benchmark_utils.py:226-265), at three distance thresholds.
-        result["fmr_flags"] = feature_match_recall_sweep(
-            ir["distance_wo_mutual"], src_ok, thresholds=(0.05, 0.1, 0.2))
+    with unit_span("register_pair"):
+        points, masks, features = (t.to(dev) for t in (points, masks, features))
+        if uniforms is not None:
+            uniforms = [u.to(dev) for u in uniforms]
+        if picks is not None:
+            picks = picks.to(dev)
+        out = forward_pair(model, cfg, points, masks, features, images)[0]
+        with stage("registration"):
+            with span("registration.sampling"):
+                scores = out["scores_overlap"] * out["scores_saliency"]
+                u_src, u_tgt = uniforms if uniforms is not None else (None, None)
+                src_idx, src_ok = weighted_sample_topk(scores[0], masks[0], n_points, generator,
+                                                       u_src)
+                tgt_idx, tgt_ok = weighted_sample_topk(scores[1], masks[1], n_points, generator,
+                                                       u_tgt)
+                s_pts, s_feats = points[0][src_idx], out["feats_f"][0][src_idx]
+                t_pts, t_feats = points[1][tgt_idx], out["feats_f"][1][tgt_idx]
+            with span("registration.matching"):
+                corr, valid = feature_correspondences(s_feats, t_feats, src_ok, tgt_ok,
+                                                      mutual=mutual)
+            with span("registration.ransac"):
+                res = ransac_pose(
+                    s_pts, t_pts, corr, valid,
+                    distance_threshold=distance_threshold, ransac_n=ransac_n,
+                    num_iterations=num_iterations, hypothesis_chunk=hypothesis_chunk,
+                    generator=generator, picks=picks,
+                )
+        result = {
+            "transform": res.transform,
+            "fitness": res.fitness,
+            "inlier_rmse": res.inlier_rmse,
+            "outputs": out,
+        }
+        if rot is not None and trans is not None:
+            ir = inlier_ratio(s_pts, t_pts, s_feats, t_feats, rot.to(dev), trans.to(dev),
+                              src_ok, tgt_ok, inlier_distance_threshold=0.1)
+            result["inlier_ratio_wo_mutual"] = ir["inlier_ratio_wo_mutual"]
+            result["inlier_ratio_w_mutual"] = ir["inlier_ratio_w_mutual"]
+            # A pair "recalls" when its inlier ratio clears 0.05 (reference
+            # benchmark_utils.py:226-265), at three distance thresholds.
+            result["fmr_flags"] = feature_match_recall_sweep(
+                ir["distance_wo_mutual"], src_ok, thresholds=(0.05, 0.1, 0.2))
     return result
 
 

@@ -22,6 +22,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from pcrcg_tpu_torch.utils.profiling import counter_group
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pcrcg_tpu_torch"
 SOURCES = ("search_distances", "kpconv_tiled", "kpconv_bwd", "tile_scatter", "kpconv_fused",
@@ -35,8 +37,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # CUDA launches per kernel (K1..K8 of the kernel table in PERF.md; both
 # entries of K3 count under K3): each wrapper adds one where it launches
-# its kernel; plain versions never count.
-LAUNCHES: Dict[str, int] = {f"K{i}": 0 for i in range(1, 9)}
+# its kernel; plain versions never count.  The group "launches" of the
+# counter registry (utils/profiling.py::counters).
+LAUNCHES: Dict[str, int] = counter_group("launches", (f"K{i}" for i in range(1, 9)))
 
 
 def count_launch(kernel_id: str) -> None:

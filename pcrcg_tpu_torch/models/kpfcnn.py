@@ -51,6 +51,7 @@ from pcrcg_tpu_torch.models.kpconv import KPConv, resolve_kpconv_impl
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, masked_softmax, pad_gather
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
 from pcrcg_tpu_torch.parallel.cloud import CloudAxis
+from pcrcg_tpu_torch.utils.profiling import span, stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,12 +275,22 @@ class KPFCNN(nn.Module):
 
     def forward(self, pyramid: Pyramid, features: torch.Tensor,
                 cloud: Optional[CloudAxis] = None):
-        cfg = self.cfg
-        plan = self.plan
+        """Traced as the stage ``kpfcnn``, its parts ``kpfcnn.encoder``,
+        ``kpfcnn.gcn`` (bottleneck, GNN, saliency) and ``kpfcnn.decoder``
+        (with the heads)."""
         psum = None if cloud is None else cloud.psum
-        # 1. joint encoder
-        x, skip_x = self.encode(pyramid, features, psum)
+        with stage("kpfcnn"):
+            # 1. joint encoder
+            with span("kpfcnn.encoder"):
+                x, skip_x = self.encode(pyramid, features, psum)
+            with span("kpfcnn.gcn"):
+                x, feats_c = self._bottleneck(pyramid, x, cloud)
+            with span("kpfcnn.decoder"):
+                return self._decode(pyramid, x, feats_c, skip_x, cloud)
 
+    def _bottleneck(self, pyramid: Pyramid, x: torch.Tensor, cloud: Optional[CloudAxis]):
+        """Steps 2-3: the bottleneck features -> (the decoder's input, the
+        GNN features)."""
         # 2. bottleneck projection + GNN between the clouds
         mask_c = pyramid.masks[-1]
         pts_c = pyramid.points[-1]
@@ -300,8 +311,15 @@ class KPFCNN(nn.Module):
         s2 = masked_softmax(inner.T / temperature, mask_c[0][None, :], dim=1) @ scores_c_raw[0]
         scores_saliency_c = torch.stack([s1, s2])
 
+        return torch.cat([scores_c_raw, scores_saliency_c, feats_c], dim=-1), feats_c
+
+    def _decode(self, pyramid: Pyramid, x: torch.Tensor, feats_c: torch.Tensor, skip_x,
+                cloud: Optional[CloudAxis]):
+        """Step 4 and the heads: the outputs."""
+        cfg = self.cfg
+        plan = self.plan
+        psum = None if cloud is None else cloud.psum
         # 4. decoder over [raw score, saliency, gnn feats] (reference :565)
-        x = torch.cat([scores_c_raw, scores_saliency_c, feats_c], dim=-1)
         if cloud is not None:  # the decoder runs on this rank's cloud
             x = cloud.own(x)
         for block_i, (bp, block) in enumerate(zip(plan.decoder, self.decoder_blocks)):

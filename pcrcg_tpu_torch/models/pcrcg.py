@@ -24,6 +24,7 @@ from pcrcg_tpu_torch.models.kpfcnn import KPFCNN
 from pcrcg_tpu_torch.models.lift import ImageLift
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
 from pcrcg_tpu_torch.parallel.cloud import CloudAxis
+from pcrcg_tpu_torch.utils.profiling import stage
 
 
 def refuse_image_feature(cfg: Config, images: Optional[Mapping]) -> None:
@@ -56,9 +57,10 @@ class PCRCG(nn.Module):
                 images: Optional[Mapping] = None, cloud: Optional[CloudAxis] = None):
         refuse_image_feature(self.cfg, images)
         if self.cfg.image_feature:
-            features = self.lift(pyramid.points[0], pyramid.masks[0], images["colors"],
-                                 images["depths"], images["world2cam"], images["valid_maps"],
-                                 images["intrinsics"])
+            with stage("backbone_lift"):
+                features = self.lift(pyramid.points[0], pyramid.masks[0], images["colors"],
+                                     images["depths"], images["world2cam"],
+                                     images["valid_maps"], images["intrinsics"])
         return self.kpfcnn(pyramid, features, cloud)
 
 

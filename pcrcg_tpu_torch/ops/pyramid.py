@@ -26,6 +26,7 @@ from pcrcg_tpu_torch.config import Budgets
 from pcrcg_tpu_torch.ops.neighbors import radius_search
 from pcrcg_tpu_torch.ops.subsample import grid_fits_morton, grid_subsample, morton_sort
 from pcrcg_tpu_torch.ops.tiled_search import radius_search_tiled_batch
+from pcrcg_tpu_torch.utils.profiling import record, span, stage
 
 
 @dataclasses.dataclass
@@ -86,24 +87,33 @@ def build_pyramid(
     ``deform_conv[ℓ]`` / ``deform_pool[ℓ]`` widen the level-ℓ conv / pool
     search radius by ``deform_scale`` (reference dataloader.py:266-299).
     With ``with_overflow`` also returns overflow [num_levels-1, 2]: occupied
-    voxels minus the level budget (positive = points dropped)."""
+    voxels minus the level budget (positive = points dropped).
+
+    Traced (``utils/profiling.py``): the parts ``pyramid.subsample`` and
+    ``pyramid.search`` of the stage ``pyramid``, and the counters
+    ``pyramid.real_points`` / ``pyramid.budget_rows`` (by level, both
+    clouds) and ``pyramid.dropped_voxels`` (by the level subsampled from:
+    the overflow's positive part)."""
     num_levels = budgets.num_levels
     tile = budgets.search_tile
     tiled = budgets.search_impl == "tiled"
 
     def search(level, q, s, m, r, cap, mt=None, local=False):
-        if not tiled:
-            idx = torch.stack([radius_search(q[c], s[c], m[c], r, cap, budgets.query_chunk)
-                               for c in range(q.shape[0])])
-            return (idx, None, None) if local else idx
-        mt = budgets.m_tiles_at(level) if mt is None else mt
-        return radius_search_tiled_batch(q, s, m, r, cap, tile=tile, m_tiles=mt,
-                                         return_local=local)
+        with span("pyramid.search"):
+            if not tiled:
+                idx = torch.stack([radius_search(q[c], s[c], m[c], r, cap, budgets.query_chunk)
+                                   for c in range(q.shape[0])])
+                return (idx, None, None) if local else idx
+            mt = budgets.m_tiles_at(level) if mt is None else mt
+            return radius_search_tiled_batch(q, s, m, r, cap, tile=tile, m_tiles=mt,
+                                             return_local=local)
 
     r = first_subsampling_dl * conv_radius
     lvl_points, lvl_masks = [points], [mask]
     neighbors, pools, upsamples, overflow = [], [], [], []
     conv_local, pool_local = [], []
+    record("pyramid.real_points", 0, mask)
+    record("pyramid.budget_rows", 0, mask.numel())
     with torch.no_grad():
         for level in range(num_levels):
             cap = budgets.neighbors[level]
@@ -116,8 +126,12 @@ def build_pyramid(
             if level + 1 < num_levels:
                 dl = 2.0 * r / conv_radius
                 n_next = budgets.points[level + 1]
-                pool_p, pool_m, n_voxels = _subsample(pts, msk, dl, n_next, tiled)
+                with span("pyramid.subsample"):
+                    pool_p, pool_m, n_voxels = _subsample(pts, msk, dl, n_next, tiled)
                 overflow.append(n_voxels - n_next)
+                record("pyramid.real_points", level + 1, pool_m)
+                record("pyramid.budget_rows", level + 1, pool_m.numel())
+                record("pyramid.dropped_voxels", level, overflow[-1])
                 r_pool = r * deform_scale if (deform_pool and deform_pool[level]) else r
                 pidx, plidx, ptls = search(level, pool_p, pts, msk, r_pool, cap, local=True)
                 pools.append(pidx)
@@ -150,12 +164,14 @@ def build_pyramid(
 
 def build_pyramid_cfg(cfg, points: torch.Tensor, mask: torch.Tensor, **kw):
     """build_pyramid with every geometry knob taken from a Config, including
-    the deformable-architecture radius widening."""
+    the deformable-architecture radius widening; traced as the stage
+    ``pyramid``."""
     deform_conv, deform_pool = cfg.deform_level_flags()
     if not any(deform_conv) and not any(deform_pool):
         deform_conv = deform_pool = None
-    return build_pyramid(
-        points, mask, cfg.budgets, cfg.first_subsampling_dl, cfg.conv_radius,
-        deform_conv=deform_conv, deform_pool=deform_pool,
-        deform_scale=cfg.deform_radius / cfg.conv_radius, **kw,
-    )
+    with stage("pyramid"):
+        return build_pyramid(
+            points, mask, cfg.budgets, cfg.first_subsampling_dl, cfg.conv_radius,
+            deform_conv=deform_conv, deform_pool=deform_pool,
+            deform_scale=cfg.deform_radius / cfg.conv_radius, **kw,
+        )

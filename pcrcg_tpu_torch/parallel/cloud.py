@@ -37,8 +37,11 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 
-# The axis's all_reduce calls by kind (a process's own; reset_exchanges()).
-EXCHANGES: Dict[str, int] = {"psum": 0, "gather": 0}
+from pcrcg_tpu_torch.utils.profiling import counter_group
+
+# The axis's all_reduce calls by kind (a process's own; reset_exchanges()):
+# the group "exchanges" of the counter registry (utils/profiling.py).
+EXCHANGES: Dict[str, int] = counter_group("exchanges", ("psum", "gather"))
 
 
 def reset_exchanges() -> None:

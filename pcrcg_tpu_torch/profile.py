@@ -13,19 +13,19 @@ the default; ``untiled``: ``kpconv_tiled: false``; ``reduce``:
 of ``configs/train/indoor.yaml`` (``PCRCG``: ResNet-50 UNet, 2 images a
 cloud, in_feats_dim 129, the same widths and budgets) on 240×320 renders
 of the pair (``assets.py::render_pair_images``).  It reports, per pair
-(per step with ``--train``):
+(per step with ``--train``; ``train_step``, batch 1, the pair under its
+ground-truth pose):
 
-* host-clock time of each stage, each ending in ``torch.cuda.synchronize()``
-  — serving: pyramid, [backbone + lift,] KPFCNN forward, sampling +
-  matching, RANSAC; ``--train`` (``train_step``'s stages, batch 1, the pair
-  under its ground-truth pose): pyramid, [backbone + lift,] forward, loss,
-  backward, optimizer.  The syncs add their own stalls, so the stages sum
-  to more than an unsynchronized pair or step;
 * the unsynchronized pair (step) time;
-* device time by kernel name from ``torch.profiler`` over the same pairs
-  (steps), and the device's busy share of the profiled wall time;
-* with ``--images``, the device time of the backbone + lift alone (a
-  profile of that call by itself) and its share of the pair's (step's).
+* from ``torch.profiler`` over the same pairs (steps): the device's busy
+  time and its share of the profiled wall time, its kernels (whatever API
+  launched them), device time by kernel name, and, for each ``pcrcg::``
+  span of the entry (``utils/profiling.py``: serving
+  ``pyramid``, [``backbone_lift``,] ``kpfcnn``, ``registration`` and their
+  parts; ``--train``: ``pyramid``, ``forward``, ``loss``, ``backward``,
+  ``optimizer``), its device ms, idle ms and kernels;
+* the pyramid's counters over the profiled pairs (steps): real points,
+  budget rows and dropped voxels by level (``utils/profiling.py``).
 
 Needs CUDA.  Prints a JSON object and writes it to ``--out`` if given.
 """
@@ -51,13 +51,11 @@ from pcrcg_tpu_torch.config import Config, load_config
 from pcrcg_tpu_torch.data.pair import make_pair_batch
 from pcrcg_tpu_torch.eval.tester import register_pair
 from pcrcg_tpu_torch.models.kpfcnn import init_kpfcnn
-from pcrcg_tpu_torch.models.lift import IMAGE_KEYS, images_to
+from pcrcg_tpu_torch.models.lift import images_to
 from pcrcg_tpu_torch.models.pcrcg import init_pcrcg
-from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
-from pcrcg_tpu_torch.registration.ransac import feature_correspondences, ransac_pose
-from pcrcg_tpu_torch.registration.sampling import weighted_sample_topk
 from pcrcg_tpu_torch.train.state import TrainState
-from pcrcg_tpu_torch.train.step import loss_from_outputs, train_step
+from pcrcg_tpu_torch.train.step import train_step
+from pcrcg_tpu_torch.utils import profiling
 
 
 # The KPConv routes and model variants (the Config fields that select them).
@@ -71,98 +69,51 @@ ROUTES = {
 IMAGE_CONFIG = REPO_ROOT / "configs" / "train" / "indoor.yaml"
 
 
-class _Marks:
-    """Host seconds between ``mark`` calls, each after a device sync."""
-
-    def __init__(self):
-        self.seconds = {}
-        self.t = time.perf_counter()
-
-    def mark(self, name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
-        self.t = now
-
-
-def _lift(model, pyramid, images):
-    """The color model's backbone + lift: its point features."""
-    return model.lift(pyramid.points[0], pyramid.masks[0], *(images[k] for k in IMAGE_KEYS))
-
-
-def _serving_stages(model, cfg, points, masks, features, images, gen, marks):
-    pyramid = build_pyramid_cfg(cfg, points, masks)
-    marks.mark("pyramid")
-    if images is None:
-        res = model(pyramid, features)
-    else:
-        feats = _lift(model, pyramid, images)
-        marks.mark("backbone_lift")
-        res = model.kpfcnn(pyramid, feats)
-    marks.mark("kpfcnn")
-    scores = res["scores_overlap"] * res["scores_saliency"]
-    si, so = weighted_sample_topk(scores[0], masks[0], 5000, gen)
-    ti, to = weighted_sample_topk(scores[1], masks[1], 5000, gen)
-    corr, valid = feature_correspondences(res["feats_f"][0][si], res["feats_f"][1][ti], so, to)
-    marks.mark("sample_match")
-    ransac_pose(points[0][si], points[1][ti], corr, valid, num_iterations=50000,
-                hypothesis_chunk=1024, generator=gen)
-    marks.mark("ransac")
-
-
-def _train_stages(state, cfg, batch, images, gen, marks):
-    """``train_step``'s work for batch 1, split at its stages."""
-    points, masks, features = batch.points[0], batch.masks[0], batch.features[0]
-    state.zero_grad()
-    with torch.enable_grad():
-        pyramid = build_pyramid_cfg(cfg, points, masks)
-        marks.mark("pyramid")
-        if images is None:
-            out = state.model(pyramid, features)
-        else:
-            feats = _lift(state.model, pyramid, images)
-            marks.mark("backbone_lift")
-            out = state.model.kpfcnn(pyramid, feats)
-        marks.mark("forward")
-        stats = loss_from_outputs(cfg, out, pyramid, points, masks, batch.rot[0],
-                                  batch.trans[0], generator=gen)
-        marks.mark("loss")
-        stats["total"].backward()
-        marks.mark("backward")
-    state.apply_gradients()
-    marks.mark("optimizer")
-
-
 def _device_profile(run, count):
-    """Device time by kernel over ``count`` calls of ``run``, per call, and
-    the host's kernel launches and stream syncs (count and host ms)."""
+    """Over ``count`` calls of ``run`` under ``torch.profiler``, per call:
+    the profiled wall ms, the device's busy ms (its operations' intervals
+    merged) and share of that wall, its kernels (any launch API; copies and
+    fills are not kernels), the host ms in kernel-launch calls, the stream
+    syncs and their host ms, the top kernels by device ms, each
+    ``pcrcg::`` span's device ms, idle ms and kernels (``stages``), and
+    the pyramid's counters summed over the calls (``counters``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    profiling.clear_recorded()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(count):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    ops = profiling.device_operations(events)
+    busy_us = sum(e - s for s, e in profiling.union((s, e) for s, e, _, _ in ops))
     by_kernel = {}
-    api = {"cudaLaunchKernel": [0, 0.0], "cudaStreamSynchronize": [0, 0.0]}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.device_time_total
-        elif ev.name in api:
-            api[ev.name][0] += 1
-            api[ev.name][1] += ev.cpu_time_total
-    busy_us = sum(by_kernel.values())
+    for s, e, name, _ in ops:
+        by_kernel[name] = by_kernel.get(name, 0.0) + e - s
+    launch, sync = [0, 0.0], [0, 0.0]
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        host = launch if "LaunchKernel" in ev.name else (
+            sync if ev.name == "cudaStreamSynchronize" else None)
+        if host is not None:
+            host[0] += 1
+            host[1] += ev.cpu_time_total
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     return {
         "profiled_wall_ms": wall_us / count / 1e3,
         "device_busy_ms": busy_us / count / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "launches": api["cudaLaunchKernel"][0] / count,
-        "launch_host_ms": api["cudaLaunchKernel"][1] / count / 1e3,
-        "syncs": api["cudaStreamSynchronize"][0] / count,
-        "sync_wait_ms": api["cudaStreamSynchronize"][1] / count / 1e3,
+        "launches": sum(not profiling.is_copy(name) for _, _, name, _ in ops) / count,
+        "launch_host_ms": launch[1] / count / 1e3,
+        "syncs": sync[0] / count,
+        "sync_wait_ms": sync[1] / count / 1e3,
         "top_kernels_ms": [(name[:120], us / count / 1e3) for name, us in top],
+        "stages": profiling.stage_table(events, count),
+        "counters": {k: v for k, v in profiling.counters(reset=True).items()
+                     if k.startswith("pyramid.")},
     }
 
 
@@ -194,13 +145,10 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     if args.train:
         state = TrainState(cfg, init(cfg, seed=0, device=device))
-        model = state.model
 
         def run():
             train_step(state, cfg, batch, generator=gen, images=batched)
 
-        def stages(marks):
-            _train_stages(state, cfg, batch, images, gen, marks)
     else:
         model = init(cfg, seed=0, device=device)
         inputs = (batch.points[0], batch.masks[0], batch.features[0])
@@ -208,14 +156,8 @@ def main(argv=None):
         def run():
             register_pair(model, cfg, *inputs, gen, images=images)
 
-        def stages(marks):
-            _serving_stages(model, cfg, *inputs, images, gen, marks)
-
     run()  # warm-up
     torch.cuda.synchronize()
-    marks = _Marks()
-    for _ in range(args.pairs):
-        stages(marks)
     t0 = time.perf_counter()
     for _ in range(args.pairs):
         run()
@@ -223,13 +165,8 @@ def main(argv=None):
     unit_ms = (time.perf_counter() - t0) / args.pairs * 1e3
     torch.cuda.reset_peak_memory_stats()
     prof = _device_profile(run, args.pairs)
-    lift = {}
-    if images is not None:
-        pyramid = build_pyramid_cfg(cfg, batch.points[0], batch.masks[0])
-        alone = _device_profile(lambda: _lift(model, pyramid, images), args.pairs)
-        lift = {"backbone_lift_device_busy_ms": alone["device_busy_ms"],
-                "backbone_lift_share": alone["device_busy_ms"] / prof["device_busy_ms"],
-                "backbone_lift_top_kernels_ms": alone["top_kernels_ms"][:10]}
+    stages = prof.pop("stages")
+    counted = prof.pop("counters")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -244,9 +181,9 @@ def main(argv=None):
         "route": args.route,
         f"{unit}s": args.pairs,
         f"{unit}_ms": unit_ms,
-        "stage_ms_synced": {k: v / args.pairs * 1e3 for k, v in marks.seconds.items()},
         **{f"{k}_per_{unit}" if k != "device_busy_share" else k: v for k, v in prof.items()},
-        **lift,
+        f"stages_per_{unit}": stages,
+        "pyramid_counters": counted,  # summed over the profiled pairs (steps)
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     text = json.dumps(result, indent=1)

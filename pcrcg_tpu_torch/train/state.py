@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from pcrcg_tpu_torch.config import Config
+from pcrcg_tpu_torch.utils.profiling import span
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
@@ -72,7 +73,8 @@ class TrainState:
         # Read on the host: a training step's one sync on the card.  The
         # host, dispatching the eager step, reaches it behind the device, so
         # it waits next to nothing (PERF.md §5).
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        with span("optimizer.finite_gate"):
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         if not finite:
             self.zero_grad()
             return False

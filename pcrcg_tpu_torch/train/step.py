@@ -37,6 +37,11 @@ On the default (tiled) KPConv route the backward reaches K3 / K4 through
 every encoder KPConv and K5 through every strided shortcut; with ``kpconv_tiled: false`` it reaches K3's gathered
 entry through every KPConv (K6 / K7 forward), and the gathers' own
 backward is an ``index_add_``.  ``kpconv_impl: reduce`` serves only.
+
+Traced (``utils/profiling.py``): a ``train_step`` (or ``train_step_dp``)
+is the unit ``train_step``, its stages ``pyramid``, ``forward`` (the model,
+the color model's lift included), ``loss``, ``backward`` (the
+``.backward()`` call) and ``optimizer`` (``TrainState.apply_gradients``).
 """
 from __future__ import annotations
 
@@ -57,25 +62,24 @@ from pcrcg_tpu_torch.parallel.cloud import CloudAxis
 from pcrcg_tpu_torch.parallel.multihost import DataMesh, global_data_mesh, host_local_batch_slice
 from pcrcg_tpu_torch.train.state import TrainState
 from pcrcg_tpu_torch.utils.packing import pack_pytree
+from pcrcg_tpu_torch.utils.profiling import stage, unit_span
 
 
-def forward_pair(model, cfg: Config, points, masks, features, images=None,
-                 with_overflow: bool = False, cloud: Optional[CloudAxis] = None):
+def forward_pair(model, cfg: Config, points, masks, features, images=None):
     """One pair: points [2, N, 3], masks [2, N], features [2, N, Cin] and,
     for a ``PCRCG`` with ``image_feature``, its ``images`` dict
-    (``models/lift.py``; numpy or torch leaves) -> (outputs, pyramid),
-    plus the per-level voxel-budget overflow [L-1, 2] with
-    ``with_overflow``.  An ``image_feature`` config without images
-    raises.  With ``cloud`` the inputs, the pyramid and the overflow are
-    this rank's cloud's [1, ...], the outputs both clouds'."""
+    (``models/lift.py``; numpy or torch leaves) -> (outputs, pyramid).  An
+    ``image_feature`` config without images raises.  (Training builds the
+    pyramid with its overflow and may run one cloud a rank: ``pair_loss``.)"""
     refuse_image_feature(cfg, images)
-    built = build_pyramid_cfg(cfg, points, masks, with_overflow=with_overflow)
-    pyramid, overflow = built if with_overflow else (built, None)
+    pyramid = build_pyramid_cfg(cfg, points, masks)
+    return _run_model(model, pyramid, features, images, points.device), pyramid
+
+
+def _run_model(model, pyramid, features, images, device, cloud: Optional[CloudAxis] = None):
     if images is None:
-        out = model(pyramid, features, cloud=cloud)
-    else:
-        out = model(pyramid, features, images_to(images, points.device), cloud=cloud)
-    return (out, pyramid, overflow) if with_overflow else (out, pyramid)
+        return model(pyramid, features, cloud=cloud)
+    return model(pyramid, features, images_to(images, device), cloud=cloud)
 
 
 def loss_from_outputs(cfg: Config, out, pyramid, points, masks, rot, trans,
@@ -115,17 +119,20 @@ def pair_loss(model, cfg: Config, points, masks, features, rot, trans,
     model-input ``points``.  With ``cloud`` the inputs are this rank's
     cloud's [1, ...]: the loss takes both clouds' geometry, gathered, and
     ``max_overflow`` is this cloud's."""
-    out, pyramid, overflow = forward_pair(model, cfg, points, masks, features, images,
-                                          with_overflow=True, cloud=cloud)
-    loss_pts = points if raw_points is None else raw_points
-    nodes = None
-    if cloud is not None:
-        loss_pts, masks = cloud.gather(loss_pts), cloud.gather(masks)
-        if cfg.node_overlap:
-            nodes = (cloud.gather(pyramid.points[-1]), cloud.gather(pyramid.masks[-1]))
-    stats = loss_from_outputs(cfg, out, pyramid, loss_pts, masks, rot, trans, uniforms,
-                              generator, nodes)
-    stats["max_overflow"] = overflow.max().clamp_min(0).float()
+    refuse_image_feature(cfg, images)
+    pyramid, overflow = build_pyramid_cfg(cfg, points, masks, with_overflow=True)
+    with stage("forward"):
+        out = _run_model(model, pyramid, features, images, points.device, cloud)
+    with stage("loss"):
+        loss_pts = points if raw_points is None else raw_points
+        nodes = None
+        if cloud is not None:
+            loss_pts, masks = cloud.gather(loss_pts), cloud.gather(masks)
+            if cfg.node_overlap:
+                nodes = (cloud.gather(pyramid.points[-1]), cloud.gather(pyramid.masks[-1]))
+        stats = loss_from_outputs(cfg, out, pyramid, loss_pts, masks, rot, trans, uniforms,
+                                  generator, nodes)
+        stats["max_overflow"] = overflow.max().clamp_min(0).float()
     return stats
 
 
@@ -155,7 +162,8 @@ def _stats_over_pairs(model, cfg: Config, batch: PairBatch,
                           raw_points=None if batch.raw_points is None else batch.raw_points[i],
                           cloud=cloud)
         if backward:
-            (stats["total"] / share).backward()
+            with stage("backward"):
+                (stats["total"] / share).backward()
         per_pair.append({k: v.detach() for k, v in stats.items()})
     return {
         k: torch.stack([s[k] for s in per_pair]).amax() if k.startswith("max_")
@@ -173,11 +181,13 @@ def train_step(state: TrainState, cfg: Config, batch: PairBatch,
     batch's image dict, every leaf with the pair-batch axis first.  Returns
     the stats."""
     _refuse_reduce(cfg)
-    state.zero_grad()
-    with torch.enable_grad():
-        stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator, backward=True,
-                                  images=images)
-    state.apply_gradients()
+    with unit_span("train_step"):
+        state.zero_grad()
+        with torch.enable_grad():
+            stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator,
+                                      backward=True, images=images)
+        with stage("optimizer"):
+            state.apply_gradients()
     return stats
 
 
@@ -253,20 +263,22 @@ def train_step_dp(state: TrainState, cfg: Config, batch: PairBatch,
     Returns the global stats."""
     _refuse_reduce(cfg)
     mesh = mesh or global_data_mesh()
-    draws = _shard_draws(cfg, batch, uniforms, generator, mesh)
-    state.zero_grad()
-    with torch.enable_grad():
-        stats = _stats_over_pairs(state.model, cfg, batch, draws, generator, backward=True,
-                                  images=images, cloud=mesh.cloud)
-    with torch.no_grad():
-        grads = []
-        for p in state.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        _all_reduce_mean(grads, mesh.n_data)
-        stats = _reduce_stats(stats, mesh)
-    state.apply_gradients()
+    with unit_span("train_step"):
+        draws = _shard_draws(cfg, batch, uniforms, generator, mesh)
+        state.zero_grad()
+        with torch.enable_grad():
+            stats = _stats_over_pairs(state.model, cfg, batch, draws, generator,
+                                      backward=True, images=images, cloud=mesh.cloud)
+        with torch.no_grad():
+            grads = []
+            for p in state.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            _all_reduce_mean(grads, mesh.n_data)
+            stats = _reduce_stats(stats, mesh)
+        with stage("optimizer"):
+            state.apply_gradients()
     return stats
 
 
