@@ -419,10 +419,88 @@ def recording_k1(outer):
     for mod, name, mode in inner:
         setattr(mod, name, wrap_inner(real[id(mod), name], mode))
     try:
-        yield calls
+        with eager_pyramid():  # a replay runs no search of its own
+            yield calls
     finally:
         for mod, name in patched:
             setattr(mod, name, real[id(mod), name])
+
+
+@contextlib.contextmanager
+def eager_pyramid():
+    """``build_pyramid_cfg`` builds eagerly on the card while the block
+    runs, as it did before the pyramid became a CUDA graph (a tree without
+    ``graphed_pyramid`` is always eager)."""
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+
+    real = getattr(pyramid_mod, "graphed_pyramid", None)
+    if real is None:
+        yield
+        return
+    pyramid_mod.graphed_pyramid = pyramid_mod.build_pyramid
+    try:
+        yield
+    finally:
+        pyramid_mod.graphed_pyramid = real
+
+
+def phase_pyramid_graph(tag, cfg, batches, calls=10):
+    """[pyramid-graph]: ``build_pyramid_cfg`` on the card, one CUDA graph a
+    key, against the eager build, bit for bit, on each batch's pair (from
+    no graph: the first call with a key captures, the others replay), with and without
+    the overflow; a returned pyramid unchanged after the next replay; then
+    the capturing calls' seconds and host ms a call, eager and replayed,
+    each run of ``calls`` ended by a sync."""
+    import torch
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
+    from pcrcg_tpu_torch.utils import profiling
+
+    def leaves(pyr, overflow):
+        return pyramid_mod._leaves(pyr) + [overflow]
+
+    pyramid_mod.clear_graphs()
+    before = dict(profiling.counters()["pyramid_graph"])
+    kept, seconds = [], []
+    for with_overflow in (True, False):
+        for points, masks in batches:
+            with eager_pyramid():
+                want = leaves(*build_pyramid_cfg(cfg, points, masks, with_overflow=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = build_pyramid_cfg(cfg, points, masks, with_overflow=with_overflow)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            got = leaves(*got) if with_overflow else leaves(got, want[-1])
+            check(len(got) == len(want) and all(
+                g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+                for g, w in zip(got, want)), f"[pyramid-graph] {tag}: replay differs from eager")
+            kept.append((got, [w.clone() for w in want]))
+    torch.cuda.synchronize()
+    check(all(all(torch.equal(g, w) for g, w in zip(got, want)) for got, want in kept),
+          f"[pyramid-graph] {tag}: a later replay changed an earlier pyramid")
+    now = profiling.counters()["pyramid_graph"]
+    calls_seen = {k: now[k] - before[k] for k in now}
+    n = 2 * len(batches)
+    check(calls_seen == {"captures": 2, "replays": n - 2, "eager": 0},
+          f"[pyramid-graph] {tag}: calls {calls_seen}")
+
+    points, masks = batches[0]
+
+    def host_ms(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    with eager_pyramid():
+        eager_ms = host_ms(lambda: build_pyramid_cfg(cfg, points, masks))
+    graph_ms = host_ms(lambda: build_pyramid_cfg(cfg, points, masks))
+    print(f"[pyramid-graph] {tag}: {n} calls bit for bit the eager build ({calls_seen}); "
+          f"the capturing calls {seconds[0]:.3f} / {seconds[len(batches)]:.3f} s; host ms a "
+          f"call, synced: eager {eager_ms:.2f}, replayed {graph_ms:.2f}", flush=True)
 
 
 def record_backward_inputs(cfg, batch, state, generator, images=None):
@@ -2168,6 +2246,9 @@ def phase_kitti(repo, work):
               + " ".join(str(m.sum(1).tolist()) for m in pyr.masks)
               + f" (budgets {list(cfg.budgets.points)}), overflow {overflow.tolist()}", flush=True)
         check(int(overflow.max()) <= 0, f"[kitti] the pyramid drops voxels: {overflow.tolist()}")
+        pairs = [make_pair_batch([smp], n0, device="cuda") for smp in test_samples[:2]]
+        phase_pyramid_graph("kitti.yaml", cfg, [(b.points[0], b.masks[0]) for b in pairs])
+        del pairs
         reg_kw = dict(distance_threshold=0.3, ransac_n=4)
         k1_calls, k2_calls = _serving_calls(cfg, batch, model, **reg_kw)
         tbatch = make_pair_batch(train_samples[:1], n0, device="cuda")
@@ -3106,6 +3187,12 @@ def earlier_slices(repo):
     batch_i = make_pair_batch([dict(src_pcd=src, tgt_pcd=tgt, rot=rot, trans=trans)],
                               cfg_i.budgets.points[0], in_feats_dim=cfg_i.in_feats_dim,
                               device="cuda")
+    swapped = make_pair_batch([dict(src_pcd=tgt, tgt_pcd=src, rot=rot, trans=trans)],
+                              cfg_i.budgets.points[0], in_feats_dim=cfg_i.in_feats_dim,
+                              device="cuda")
+    phase_pyramid_graph("indoor.yaml", cfg_i, [(b.points[0], b.masks[0])
+                                               for b in (batch_i, swapped)])
+    del swapped
     images = images_to(render_pair_images(src, tgt, cfg_i.img_num, pose=(rot, trans)), "cuda")
     model_i = init_pcrcg(cfg_i, seed=0, device="cuda")
     calls = [c for c in record_kernel_inputs(cfg_i, batch_i, model_i, images)["K2"]

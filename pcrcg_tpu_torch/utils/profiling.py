@@ -18,8 +18,8 @@ The port's own tracing lives here too:
   child spans named ``<stage>.<part>``.  ``stage_table`` reduces a
   profile's events to device ms, idle ms and kernels per span name.
 * **Counters.**  One registry: host groups (``counter_group``: the kernel
-  launches of ``kernels.LAUNCHES``, the cloud axis's ``EXCHANGES``),
-  always counted, and device-valued counters (``record``), kept only while
+  launches of ``kernels.LAUNCHES``, the cloud axis's ``EXCHANGES``, the
+  pyramid's CUDA-graph calls ``pyramid.GRAPH_CALLS``), always counted, and device-valued counters (``record``), kept only while
   a profiler records, as references to tensors the program computes
   anyway and summed only when ``counters()`` reads them (or when
   ``trace()`` ends): no kernel and no sync inside a traced unit.
@@ -162,12 +162,13 @@ def _settle() -> None:
 
 def counters(reset: bool = False) -> dict:
     """Every counter as a plain dict: each host group by name
-    (``launches``, ``exchanges``), each device-valued counter as a list by
-    index (``pyramid.real_points``, ``pyramid.budget_rows``: by level;
-    ``pyramid.dropped_voxels``: by the level subsampled from).  ``reset``
-    drops the device-valued counters after the read; the host groups are
-    zeroed by their owners (``kernels.reset_launches``,
-    ``cloud.reset_exchanges``)."""
+    (``launches``, ``exchanges``, ``pyramid_graph``), each device-valued
+    counter as a list by index (``pyramid.real_points``,
+    ``pyramid.budget_rows``: by level; ``pyramid.dropped_voxels``: by the
+    level subsampled from).  ``reset`` drops the device-valued counters
+    after the read; the host groups are zeroed by their owners
+    (``kernels.reset_launches``, ``cloud.reset_exchanges``; the pyramid's
+    graph calls count for the life of the process)."""
     out = {name: dict(group) for name, group in _GROUPS.items()}
     for name, by_index in _RECORDED.items():
         out[name] = [_total(by_index.get(i, [])) for i in range(max(by_index) + 1)]
