@@ -141,9 +141,19 @@ Phases, each printed as it completes:
                searches at the widened radii against its plain chain, K6 on
                the 10 offset sub-convs ((C, D) = (64..512, 60)) and K3's
                gathered entry on their backward against their plain versions
-               and timed; 3 and 5 (K2 1, K6 10 a pair; K3 11, K4 and K5 none
+               and timed; 3 and 5 (K2 1, K6 10 a pair; K3 11, K5 3, K4 none
                a step); 4 at the tiny widths; 6 with the shipped heads (off)
-               on the first crop whose CPU path is well conditioned.
+               on the first crop whose CPU path is well conditioned;
+               kernels-deformable-kitti — the configuration of the
+               benchmark's ``pcrcg_kitti_deform.train`` cell
+               (``perfbench/configs/pcrcg_kitti_deform.json``: kitti.yaml's
+               widths, the last five encoder blocks deformable, unmodulated,
+               neighbor caps 40 / 40 / 98 / 84) on a pair of its
+               ``kitti_drive_gt`` traffic with its seeded weights: K1 on
+               one train_step's searches (k = 98 at level 2), K6 on the 5
+               offset sub-convs ((C, D) = (256, 45), (512, 45) at H = 98 /
+               84) and K3's gathered entry on their backward, against their
+               plain versions and timed.
 24. path-dense, kernels-dense, train-dense, routes-dense, agree-dense —
                ``search_impl: dense``: 3 and 5
                (K6 8, K7 3, no K1 or K2; K3 11, no K5), then the tiled and
@@ -2544,12 +2554,14 @@ def phase_deformable(batch):
 
     # Block 0 (simple, rigid) on K2; every resnetb block deformable: its
     # offset sub-conv on K6 forward and K3's gathered entry backward, its
-    # deformable conv dense, its strided shortcut the dense max-pool.
+    # deformable conv dense, its strided shortcut the tiled route's
+    # max-pool (K5 backward).
     phase_path(cfg, batch, model, "path-deformable",
                {"K1": None, "K2": 1, "K6": 10, "K7": 0, "K8": 0})
     del model
-    phase_train(cfg, batch, state, "train-deformable", launched=("K1", "K2", "K3", "K6"),
-                idle=("K4", "K5", "K7", "K8"), per_step={"K2": 1, "K6": 10, "K3": 11})
+    phase_train(cfg, batch, state, "train-deformable",
+                launched=("K1", "K2", "K3", "K5", "K6"), idle=("K4", "K7", "K8"),
+                per_step={"K2": 1, "K6": 10, "K3": 11, "K5": 3})
     del state
     torch.cuda.empty_cache()
     phase_agree("agree-deformable", deformable=True, modulated=True)
@@ -2571,7 +2583,72 @@ def phase_deformable(batch):
           f"crop {len(shares) - 1}", flush=True)
     check(shares[-1] <= 0.1, "[agree-train-deformable] no crop is well conditioned")
     phase_agree_train("agree-train-deformable", sample=crop, **deform_cfg)
+    torch.cuda.empty_cache()
+    phase_deformable_kitti()
     return k6, k3g
+
+
+# [kernels-deformable-kitti]: the offset sub-convs' (C, D) in the benchmark's
+# deformable KITTI configuration (unmodulated: D = 3K).
+KITTI_DEFORM_SHAPES = ((256, 45), (512, 45))
+
+
+def phase_deformable_kitti(seed=3180000701):
+    """[kernels-deformable-kitti]: the configuration of the benchmark's
+    ``pcrcg_kitti_deform.train`` cell on the first pair of its traffic, the
+    cell's seeded weights and training state, all made as a run of the cell
+    makes them from ``seed``.  One ``train_step``'s calls of K1 (the
+    pyramid's searches and the loss's), K6 (the 5 offset sub-convs' forward)
+    and K3's gathered entry (their backward) are recorded; each is held
+    against its plain version and timed as in [kernels-deformable], at the
+    widened caps: k = neighbors[2] in K1, H = neighbors[2] and neighbors[3]
+    in K6 and K3."""
+    import torch
+    import pcrcg_tpu_torch.losses as losses_mod
+    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    import pcrcg_tpu_torch.ops.pyramid as pyramid_mod
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_fused, kpconv_fused_plain
+    from pcrcg_tpu_torch.train.step import train_step
+    from perfbench.core import files, harness, program, weights
+
+    tag = "kernels-deformable-kitti"
+    device = torch.device("cuda", 0)
+    cell = files.load_cell("pcrcg_kitti_deform.train")
+    cfg = program.port_config(cell["sections"])
+    caps = cfg.budgets.neighbors
+    sample = files.make_pool(cell["traffic_params"], harness.sub_seed(seed, 1), device,
+                             images=False)[0]
+    batch = program.make_batch(sample, cfg, device)
+    state = weights.seeded_state(program.model_shapes(cfg), harness.sub_seed(seed, 0), device)
+    model = program.build_model(cfg, state, device)
+    del state
+    train = program.train_state(cfg, model, cell["steps_per_epoch"])
+    gen = torch.Generator(device=device).manual_seed(harness.sub_seed(seed, 2))
+    with recording_k1([(pyramid_mod, "radius_search_tiled_batch"),
+                       (losses_mod, "min_dist_sq_tiled"),
+                       (losses_mod, "radius_search_tiled")]) as k1_calls:
+        calls = record_calls(lambda: train_step(train, cfg, batch, generator=gen),
+                             {"K6": (kf_mod, "kpconv_fused"),
+                              "K3g": (kf_mod, "kpconv_fused_bwd")})
+    ks = sorted({args[3] for mode, args in k1_calls if mode == "topk"})
+    h6 = sorted({args[1].shape[0] for args, _ in calls["K6"]})
+    h3 = sorted({args[1].shape[0] for args, _ in calls["K3g"]})
+    print(f"[{tag}] caps {tuple(caps)}; recorded {len(k1_calls)} K1 calls (top-k k {ks}), "
+          f"{len(calls['K6'])} K6 calls (H {h6}) and {len(calls['K3g'])} calls of K3's gathered "
+          f"entry (H {h3}) in one train_step", flush=True)
+    check(caps[2] in ks, f"[{tag}] no K1 call at k = {caps[2]}")
+    check(len(calls["K6"]) == 5 and len(calls["K3g"]) == 5,
+          f"[{tag}] expected 5 K6 and 5 K3 gathered calls")
+    check(h6 == h3 == sorted({caps[2], caps[3]}), f"[{tag}] H is not the caps at levels 2-3")
+    del model, train
+    k1 = phase_k1(k1_calls, tag=tag)
+    del k1_calls
+    k6 = _gathered_conv_phase("K6", calls["K6"], kpconv_fused, kpconv_fused_plain,
+                              KITTI_DEFORM_SHAPES, tag=tag)
+    k3g = phase_k3g(calls["K3g"], tag=tag)
+    del calls
+    torch.cuda.empty_cache()
+    return k1, k6, k3g
 
 
 def _level_perm(p_from, m_from, p_to, m_to):

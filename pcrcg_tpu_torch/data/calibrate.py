@@ -5,10 +5,13 @@ port's ``native.py``).
 Capability parity with the reference's ``calibrate_neighbors``
 (datasets/dataloader.py:402-434): it histograms per-level neighborhood
 sizes over sample batches and keeps the 80th-percentile cap
-(keep_ratio=0.8, samples_threshold=2000).  Here the same statistic — plus
-per-level voxel-occupancy maxima for the point budgets — is computed once
-offline with the native host kernels, and the result is written into the
-config's ``tpu.budgets`` section instead of being recomputed every run.
+(keep_ratio=0.8, samples_threshold=2000), over the conv neighbor lists of
+the collation, which searches a deformable level at the widened radius
+r·deform_radius/conv_radius (datasets/dataloader.py:266-299).  Here the
+same statistic — plus per-level voxel-occupancy maxima for the point
+budgets — is computed once offline with the native host kernels, and the
+result is written into the config's ``tpu.budgets`` section instead of
+being recomputed every run.
 """
 from __future__ import annotations
 
@@ -34,8 +37,12 @@ def calibrate_budgets(
 ) -> Budgets:
     """Runs the pyramid schedule (radius doubling, dl = 2r/conv_radius —
     dataloader.py:239,286,357) on ``num_samples`` samples with the native
-    kernels and returns calibrated Budgets."""
+    kernels and returns calibrated Budgets.  A level whose conv search
+    ``config.deform_level_flags()`` widens is counted at the widened
+    radius, as the collation lists it."""
     num_levels = len(config.budgets.points)
+    deform_conv = config.deform_level_flags()[0]
+    deform_scale = config.deform_radius / config.conv_radius
     max_pts = [0] * num_levels
     counts_hist: List[List[int]] = [[] for _ in range(num_levels)]
 
@@ -49,7 +56,8 @@ def calibrate_budgets(
             for lvl in range(num_levels):
                 max_pts[lvl] = max(max_pts[lvl], level_pts.shape[0])
                 if len(counts_hist[lvl]) < samples_threshold:
-                    counts = native.radius_count(level_pts, level_pts, r)
+                    r_conv = r * deform_scale if deform_conv[lvl] else r
+                    counts = native.radius_count(level_pts, level_pts, r_conv)
                     counts_hist[lvl].extend(counts.tolist())
                 if lvl + 1 < num_levels:
                     dl = 2.0 * r / config.conv_radius

@@ -121,10 +121,11 @@ class ResnetBottleneckBlock(nn.Module):
     """1x1 down -> KPConv -> 1x1 up, with a shortcut that is max-pooled over
     the pool neighbors when strided (reference blocks.py:593-678).  The
     strided shortcut, as pcrcg_tpu/models/blocks.py:182-229: on the tiled
-    route ``max_pool_first``; on the untiled ``fused`` route the max over
-    the conv's own merged gather (K7); otherwise, and for a deformable
-    conv (which ``KPFCNN`` never hands the tiled metadata, as the JAX
-    package's), the dense ``max_pool``."""
+    route ``max_pool_first``, a deformable conv's too (the conv ignores the
+    metadata; the JAX package's deformable shortcut is the dense
+    ``max_pool``, which differs from it only in how a gradient splits
+    among exactly tied maxima); on the untiled ``fused`` route the max over
+    the conv's own merged gather (K7); otherwise the dense ``max_pool``."""
 
     def __init__(self, in_dim: int, out_dim: int, radius: float, kp_extent: float,
                  config_kp: dict, strided: bool = False, kp_seed: int = 0,

@@ -30,7 +30,12 @@ points, plain PyTorch as in the JAX package (pcrcg_tpu/models/kpconv.py:
 253-334, which has no Pallas kernel for it).  Its rigid ``offset_conv``
 sub-module predicts the offsets (and modulations) on the module's route
 without the tiled metadata: K6 forward and K3's gathered entry backward on
-the card for ``fused``.
+the card for ``fused``.  Traced (``utils/profiling.py``): the spans
+``deform.offset`` (the sub-conv and its bias) and ``deform.conv`` (the
+deformed conv), and by query level the counters ``deform.real_neighbors``
+(non-shadow list entries), ``deform.kept_neighbors`` (those within
+KP_extent of some deformed kernel point: what the conv keeps) and
+``deform.cap_rows`` (Nq·H: the rows the dense formulation computes over).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from pcrcg_tpu_torch.ops import kpconv_fused, kpconv_pallas
 from pcrcg_tpu_torch.ops.kpconv_common import influence_fn
 from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_ad
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, pad_gather, pad_gather_rows
+from pcrcg_tpu_torch.utils.profiling import record, recording, span
 
 IMPLS = ("fused", "reduce", "xla")
 
@@ -148,7 +154,7 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: floa
 
 def kpconv_deformable(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: float,
                       offsets, modulations=None, influence: str = "linear",
-                      aggregation: str = "sum"):
+                      aggregation: str = "sum", level: int = 0):
     """Deformable KPConv over one point set: as ``kpconv``, with the kernel
     points of query n at ``kernel_points + offsets[n]`` (offsets [Nq, K, 3],
     already scaled by KP_extent) and the weighted features of kernel point k
@@ -158,13 +164,19 @@ def kpconv_deformable(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_e
     from every deformed kernel point and re-pads them as shadows
     (blocks.py:292-316); with static shapes their influences are zeroed and
     they leave the neighbor count, which gives the same output for every
-    influence and aggregation."""
+    influence and aggregation.  ``level`` indexes the ``deform.*``
+    counters."""
     neighbors = pad_gather(s_pts, neighb_inds, fill_value=PAD_COORD) - q_pts[:, None, :]
     deformed = kernel_points[None, :, :] + offsets  # [Nq,K,3]
     diff = neighbors[:, :, None, :] - deformed[:, None, :, :]
     sq_distances = (diff * diff).sum(-1)  # [Nq,H,K]
     # The JAX package compares with kp_extent**2 rounded once to fp32.
     in_range = (sq_distances < float(np.float32(kp_extent**2))).any(2)  # [Nq,H]
+    if recording():  # a pad query's shadows lie at its own PAD_COORD: in range
+        real = neighb_inds < s_pts.shape[0]
+        record("deform.real_neighbors", level, real)
+        record("deform.kept_neighbors", level, in_range & real)
+        record("deform.cap_rows", level, neighb_inds.numel())
     all_weights = influence_fn(sq_distances, kp_extent, influence)
     if aggregation == "closest":
         all_weights = all_weights * nn.functional.one_hot(
@@ -220,7 +232,9 @@ class KPConv(nn.Module):
     [K, 3] (each layer's own rotated/jittered disposition); deformable,
     also ``offset_conv`` (a rigid KPConv with its own disposition, seed +
     7919, out width 3K, or 4K when modulated) and the zero-initialized
-    ``offset_bias`` (reference blocks.py:179-199)."""
+    ``offset_bias`` (reference blocks.py:179-199).  ``level`` is the
+    query level (``KPFCNN`` sets it), which indexes the ``deform.*``
+    counters."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
                  kp_extent: float, num_kernel_points: int = 15,
@@ -237,6 +251,7 @@ class KPConv(nn.Module):
         self.impl = resolve_kpconv_impl(impl)
         self.deformable = deformable
         self.modulated = modulated
+        self.level = 0
         kp = layer_kernel_points(radius, num_kernel_points, fixed=fixed, seed=seed)
         self.register_buffer("kernel_points", torch.from_numpy(kp))
         self.weights = nn.Parameter(torch.empty(num_kernel_points, in_channels, out_channels))
@@ -261,7 +276,7 @@ class KPConv(nn.Module):
         shortcut [B,Nq,C2] (``fused``: from the conv's own gather; otherwise
         ``max_pool``).  ``tiled_meta`` = (lidx [B,G·128,H], tiles [B,G,M])
         from the tiled search selects the candidate-tile kernel on the
-        ``fused`` route."""
+        ``fused`` route (a deformable conv ignores it)."""
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
         if self.deformable:
@@ -294,15 +309,18 @@ class KPConv(nn.Module):
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
         k = self.kernel_points.shape[0]
-        feats = self.offset_conv(q_pts, s_pts, neighb_inds, x, neighbors_rel) + self.offset_bias
+        with span("deform.offset"):
+            feats = (self.offset_conv(q_pts, s_pts, neighb_inds, x, neighbors_rel)
+                     + self.offset_bias)
         feats = feats.reshape(b * nq, -1)
         offsets = feats[:, :3 * k].reshape(b * nq, k, 3) * self.kp_extent
         modulations = 2.0 * torch.sigmoid(feats[:, 3 * k:]) if self.modulated else None
-        out = kpconv_deformable(
-            q_pts.reshape(b * nq, 3), s_pts.reshape(b * ns, 3), stack_inds(neighb_inds, ns),
-            x.reshape(b * ns, -1), self.kernel_points, self.weights, float(self.kp_extent),
-            offsets, modulations, self.influence, self.aggregation,
-        )
+        with span("deform.conv"):
+            out = kpconv_deformable(
+                q_pts.reshape(b * nq, 3), s_pts.reshape(b * ns, 3), stack_inds(neighb_inds, ns),
+                x.reshape(b * ns, -1), self.kernel_points, self.weights, float(self.kp_extent),
+                offsets, modulations, self.influence, self.aggregation, self.level,
+            )
         return out.reshape(b, nq, -1)
 
     def _tiled(self, q_pts, s_pts, x, tiled_meta):

@@ -14,7 +14,8 @@ each level's rel is computed once, without gradient, and shared by its
 convs (the strided convs of ``fused`` compute theirs from the merged
 gather instead).  ``*_deformable`` blocks (``deformable: True``, with
 ``modulated``) run the deformable KPConv of ``models/kpconv.py``, never on
-the tiled metadata.
+the candidate tiles; on the tiled route their strided shortcut is the
+route's ``max_pool_first``, as the rigid blocks'.
 
 On the cloud ('model') mesh axis (``forward(..., cloud=)``,
 ``parallel/cloud.py``) a rank holds one cloud: the pyramid and
@@ -177,6 +178,7 @@ class KPFCNN(nn.Module):
             else:
                 enc.append(ResnetBottleneckBlock(bp.in_dim, bp.out_dim,
                                                  strided=bp.strided, **common))
+            enc[-1].KPConv.level = bp.layer + int(bp.strided)
         self.encoder_blocks = nn.ModuleList(enc)
 
         gnn_dim = cfg.gnn_feats_dim
@@ -258,17 +260,17 @@ class KPFCNN(nn.Module):
             if block_i in plan.encoder_skips:
                 skip_x.append(x)
             lvl = bp.layer
-            # A deformable conv never takes the tiled metadata (its offset
-            # sub-conv and its shortcut run off the tiled route).
-            use_meta = tiled and not bp.deformable
+            # A deformable conv ignores the tiled metadata (its offset
+            # sub-conv runs off the tiled route); with it, a strided block's
+            # shortcut takes the tiled route's max-pool all the same.
             if bp.strided:
                 q_pts, q_mask = pyramid.points[lvl + 1], pyramid.masks[lvl + 1]
                 neighb, rel = pyramid.pools[lvl], pool_rel.get(lvl)
-                tmeta = pyramid.pool_local[lvl] if use_meta else None
+                tmeta = pyramid.pool_local[lvl] if tiled else None
             else:
                 q_pts, q_mask = pyramid.points[lvl], pyramid.masks[lvl]
                 neighb, rel = pyramid.neighbors[lvl], conv_rel.get(lvl)
-                tmeta = pyramid.conv_local[lvl] if use_meta else None
+                tmeta = pyramid.conv_local[lvl] if tiled else None
             x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask, pyramid.masks[lvl],
                       rel, tiled_meta=tmeta, psum=psum)
         return x, skip_x

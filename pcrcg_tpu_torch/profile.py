@@ -25,7 +25,9 @@ ground-truth pose):
   parts; ``--train``: ``pyramid``, ``forward``, ``loss``, ``backward``,
   ``optimizer``), its device ms, idle ms and kernels;
 * the pyramid's counters over the profiled pairs (steps): real points,
-  budget rows and dropped voxels by level (``utils/profiling.py``).
+  budget rows and dropped voxels by level, and with deformable blocks
+  the ``deform.*`` neighbor counters by query level
+  (``utils/profiling.py``).
 
 Needs CUDA.  Prints a JSON object and writes it to ``--out`` if given.
 """
@@ -76,7 +78,8 @@ def _device_profile(run, count):
     fills are not kernels), the host ms in kernel-launch calls, the stream
     syncs and their host ms, the top kernels by device ms, each
     ``pcrcg::`` span's device ms, idle ms and kernels (``stages``), and
-    the pyramid's counters summed over the calls (``counters``)."""
+    the pyramid's and the deformable convs' counters summed over the
+    calls (``counters``)."""
     from torch.profiler import ProfilerActivity, profile
 
     profiling.clear_recorded()
@@ -113,7 +116,7 @@ def _device_profile(run, count):
         "top_kernels_ms": [(name[:120], us / count / 1e3) for name, us in top],
         "stages": profiling.stage_table(events, count),
         "counters": {k: v for k, v in profiling.counters(reset=True).items()
-                     if k.startswith("pyramid.")},
+                     if k.startswith(("pyramid.", "deform."))},
     }
 
 
@@ -183,7 +186,7 @@ def main(argv=None):
         f"{unit}_ms": unit_ms,
         **{f"{k}_per_{unit}" if k != "device_busy_share" else k: v for k, v in prof.items()},
         f"stages_per_{unit}": stages,
-        "pyramid_counters": counted,  # summed over the profiled pairs (steps)
+        "counters": counted,  # summed over the profiled pairs (steps)
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     text = json.dumps(result, indent=1)

@@ -165,10 +165,12 @@ def counters(reset: bool = False) -> dict:
     (``launches``, ``exchanges``, ``pyramid_graph``), each device-valued
     counter as a list by index (``pyramid.real_points``,
     ``pyramid.budget_rows``: by level; ``pyramid.dropped_voxels``: by the
-    level subsampled from).  ``reset`` drops the device-valued counters
-    after the read; the host groups are zeroed by their owners
-    (``kernels.reset_launches``, ``cloud.reset_exchanges``; the pyramid's
-    graph calls count for the life of the process)."""
+    level subsampled from; ``deform.real_neighbors``,
+    ``deform.kept_neighbors``, ``deform.cap_rows``: by the deformable
+    conv's query level, ``models/kpconv.py``).  ``reset`` drops the
+    device-valued counters after the read; the host groups are zeroed by
+    their owners (``kernels.reset_launches``, ``cloud.reset_exchanges``; the
+    pyramid's graph calls count for the life of the process)."""
     out = {name: dict(group) for name, group in _GROUPS.items()}
     for name, by_index in _RECORDED.items():
         out[name] = [_total(by_index.get(i, [])) for i in range(max(by_index) + 1)]
