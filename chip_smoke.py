@@ -166,7 +166,7 @@ Phases, each printed as it completes:
                on the calls of a serving forward and K3's gathered entry on
                those of a train_step, against their plain versions and
                timed; agree-dense — 4 on the dense route.
-25. dp       — ``train_step_dp`` on two ranks of ``torch.distributed`` that
+25. dp       — ``train_step`` on a mesh of two ranks of ``torch.distributed`` that
                share the card (gloo by name: NCCL takes a card a rank),
                ``Config()``, a pair a rank, 3 steps: step 1 against the
                single-process ``train_step`` on the same 2-pair batch, weights
@@ -180,7 +180,7 @@ Phases, each printed as it completes:
                chain), K2 in its encoder, K3 with K4's scatter and K5 in
                that encoder's backward, each against its plain version and
                timed with its bound, as in 2.
-27. cloud    — ``train_step_dp`` on ``make_mesh(1, 2)``: two gloo ranks
+27. cloud    — ``train_step`` on ``make_mesh(1, 2)``: two gloo ranks
                sharing the card, a cloud of the assets pair each,
                ``Config()``, 3 steps: step 1 against the single-process
                ``train_step`` (loss terms rtol 1e-4; the encoder's, GCN's,
@@ -200,10 +200,7 @@ entry from [train-untiled], K8 from [path-reduce]; K4 runs inside K3's
 tiled entry, so its row gives that entry's time and bound), and as its
 last line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, without CUDA or without the
-package beside it, and on any failed check.  On an older tree (timed
-beside this one) whose K1 writes the distance matrix, [kernels] K1 times
-the chain the fused kernel replaced: that K1, then the stable sort, the
-mapping and the cutoff.
+package beside it, and on any failed check.
 """
 from __future__ import annotations
 
@@ -383,16 +380,11 @@ def recording_k1(outer):
     """Record K1's calls made inside the searches ``outer`` = [(module,
     name)] (``radius_search_tiled_batch`` / ``radius_search_tiled``:
     top-k; ``min_dist_sq_tiled``: value mode) while the block runs.  Yields
-    the list of (mode, args) in the fused kernel's terms: "topk" (queries,
-    supa, sel, k, r2, nq, ns, batch) or "min_d2" (queries, supa, sel, nq).
-    On a tree from before the fused kernel, whose K1 writes the distance
-    matrix (``tiled_candidate_distances``), the same arguments are made
-    from K1's and the search's own."""
+    the list of (mode, args) in the kernel's terms: "topk" (queries, supa,
+    sel, k, r2, nq, ns, batch) or "min_d2" (queries, supa, sel, nq)."""
     import pcrcg_tpu_torch.ops.tiled_search as ts
-    from pcrcg_tpu_torch.ops.neighbors import radius_sq
 
     calls, active = [], []
-    fused = hasattr(ts, "tiled_search")
 
     def wrap_outer(real):
         def fn(*a, **kw):
@@ -406,22 +398,11 @@ def recording_k1(outer):
     def wrap_inner(real, mode):
         def fn(*a):
             if active:
-                if fused:
-                    calls.append((mode, a))
-                else:  # the distance-only K1: (queries, supa, sel)
-                    name, oa = active[-1]
-                    q, s = oa[0], oa[1]
-                    if name == "min_dist_sq_tiled":
-                        calls.append(("min_d2", (*a, q.shape[0])))
-                    else:
-                        b, nq, ns = (q.shape[0], q.shape[1], s.shape[1]) if q.dim() == 3 \
-                            else (1, q.shape[0], s.shape[0])
-                        calls.append(("topk", (*a, oa[4], radius_sq(oa[3]), nq, ns, b)))
+                calls.append((mode, a))
             return real(*a)
         return fn
 
-    inner = ([(ts, "tiled_search", "topk"), (ts, "tiled_min_dist_sq", "min_d2")] if fused
-             else [(ts, "tiled_candidate_distances", None)])
+    inner = [(ts, "tiled_search", "topk"), (ts, "tiled_min_dist_sq", "min_d2")]
     patched = [(mod, name) for mod, name in outer] + [(ts, name) for _, name, _ in inner]
     real = {(id(mod), name): getattr(mod, name) for mod, name in patched}
     for mod, name in outer:
@@ -514,41 +495,14 @@ def phase_pyramid_graph(tag, cfg, batches, calls=10):
 
 
 def record_backward_inputs(cfg, batch, state, generator, images=None):
-    """K3 / K4 / K5 arguments of one full-width ``train_step``: K3's
-    candidate-tile entry with K4 folded in (``kpconv_tiled_bwd``) or, on a
-    tree from before the fold (timed for comparison), K3 and K4 apart."""
-    import pcrcg_tpu_torch.ops.kpconv_fused as kf_mod
+    """K3 / K5 arguments of one full-width ``train_step``: K3's
+    candidate-tile entry with K4 folded in (``kpconv_tiled_bwd``)."""
     import pcrcg_tpu_torch.ops.kpconv_tiled as kt_mod
     from pcrcg_tpu_torch.train.step import train_step
 
-    targets = {"K5": (kt_mod, "maxpool_bwd")}
-    if hasattr(kt_mod, "kpconv_tiled_bwd"):
-        targets["K3"] = (kt_mod, "kpconv_tiled_bwd")
-    else:
-        targets.update(K3=(kf_mod, "kpconv_bwd"), K4=(kt_mod, "scatter_ds_feats"))
-    kw = {} if images is None else dict(images=images)  # older trees take no images
-    return record_calls(lambda: train_step(state, cfg, batch, generator=generator, **kw), targets)
-
-
-def _chain_after_distances(d2, sel, k, r2, nq, ns, batch, tile, supa_tiles):
-    """The stable sort, tile-table mapping and cutoff that followed the
-    distance-only K1 (the fused kernel's plain chain after its distances)."""
-    import torch
-    from pcrcg_tpu_torch.ops.neighbors import _smallest_k
-
-    g_total, m_tiles = sel.shape
-    g_count = g_total // batch
-    d2k, lidx = _smallest_k(d2, k)
-    d2k = d2k.reshape(batch, g_count * 128, k)
-    lidx = lidx.reshape(batch, g_count, 128 * k)
-    boff = torch.arange(batch, device=sel.device)[:, None, None] * (supa_tiles // batch)
-    cloud_sel = sel.long().reshape(batch, g_count, m_tiles) - boff
-    tile_of = torch.gather(cloud_sel, 2, lidx // tile)
-    gidx = (tile_of * tile + lidx % tile).reshape(batch, g_count * 128, k)
-    in_r = d2k <= r2
-    idx = torch.where(in_r, gidx, ns)[:, :nq]
-    return idx, torch.where(in_r, lidx.reshape(batch, g_count * 128, k), m_tiles * tile).to(
-        torch.int32)
+    targets = {"K5": (kt_mod, "maxpool_bwd"), "K3": (kt_mod, "kpconv_tiled_bwd")}
+    return record_calls(lambda: train_step(state, cfg, batch, generator=generator,
+                                           images=images), targets)
 
 
 def phase_k1(calls, tag="kernels"):
@@ -559,14 +513,11 @@ def phase_k1(calls, tag="kernels"):
     level-0 conv search, ``torch.sort(d2, stable=True)`` alone (a
     diagnostic).  Bound: queries, supa and sel read once, idx (8 B) and
     lidx (4 B) a slot (4 B a query in the value mode) written; 9 operations
-    a (query, candidate).  On a tree whose K1 writes the distance matrix,
-    the time is that of the chain the fused kernel replaces: K1, then the
-    stable sort, the mapping and the cutoff (or the ``amin``)."""
+    a (query, candidate)."""
     import torch
     import pcrcg_tpu_torch.ops.search_kernel as sk
 
-    fused = hasattr(sk, "tiled_search")
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0, dist_ms=0.0)
+    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, flops=0.0)
     for i, (mode, args) in enumerate(calls):
         q, supa, sel = args[:3]
         g_total, m_tiles = sel.shape
@@ -578,43 +529,29 @@ def phase_k1(calls, tag="kernels"):
             nq = args[3]
             nbytes += 4 * nq
             what = f"value mode, Nq={nq}"
-            if fused:
-                kernel = lambda: sk.tiled_min_dist_sq(*args)  # noqa: E731
-                plain = lambda: sk.tiled_min_dist_sq_plain(*args)  # noqa: E731
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
-                check(torch.equal(got, want), f"K1 call {i}: value mode differs from amin")
-                check(bool(torch.isfinite(got).all()), f"K1 call {i}: non-finite minimum")
-            else:
-                kernel = lambda: sk.tiled_candidate_distances(q, supa, sel).amin(-1)[:nq]  # noqa
+            kernel = lambda: sk.tiled_min_dist_sq(*args)  # noqa: E731
+            plain = lambda: sk.tiled_min_dist_sq_plain(*args)  # noqa: E731
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K1 call {i}: value mode differs from amin")
+            check(bool(torch.isfinite(got).all()), f"K1 call {i}: non-finite minimum")
         else:
             k, r2, nq, ns, batch = args[3:]
             nbytes += 8 * batch * nq * k + 4 * g_total * 128 * k  # idx, lidx
             what = f"k={k}, B={batch}, Nq={nq}"
-            if fused:
-                kernel = lambda: sk.tiled_search(*args)  # noqa: E731
-                plain = lambda: sk.tiled_search_plain(*args)  # noqa: E731
-                (gi, gl), (wi, wl) = kernel(), plain()
-                torch.cuda.synchronize()
-                check(torch.equal(gi, wi), f"K1 call {i}: idx differs from the plain chain")
-                check(torch.equal(gl, wl), f"K1 call {i}: lidx differs from the plain chain")
-                kept = float((gi < ns).float().mean())
-                what += f", share of slots kept {kept:.4f}"
-                del gi, gl, wi, wl
-            else:
-                kernel = lambda: _chain_after_distances(  # noqa: E731
-                    sk.tiled_candidate_distances(q, supa, sel), sel, *args[3:], tile,
-                    supa.shape[0])
+            kernel = lambda: sk.tiled_search(*args)  # noqa: E731
+            plain = lambda: sk.tiled_search_plain(*args)  # noqa: E731
+            (gi, gl), (wi, wl) = kernel(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(gi, wi), f"K1 call {i}: idx differs from the plain chain")
+            check(torch.equal(gl, wl), f"K1 call {i}: lidx differs from the plain chain")
+            kept = float((gi < ns).float().mean())
+            what += f", share of slots kept {kept:.4f}"
+            del gi, gl, wi, wl
         ms = time_ms(kernel)
-        extra = ""
-        if fused:
-            plain_ms = time_ms(plain, iters=3)
-            res["plain_ms"] += plain_ms
-            extra = f" plain chain {plain_ms:.4f} ms"
-        else:  # the distance kernel alone, as the old tree timed it
-            dist_ms = time_ms(lambda: sk.tiled_candidate_distances(q, supa, sel))
-            res["dist_ms"] += dist_ms
-            extra = f" (its distance kernel alone {dist_ms:.4f} ms)"
+        plain_ms = time_ms(plain, iters=3)
+        res["plain_ms"] += plain_ms
+        extra = f" plain chain {plain_ms:.4f} ms"
         if i == 0:
             d2 = sk.tiled_candidate_distances_plain(q, supa, sel)
             sort_ms = time_ms(lambda: torch.sort(d2, dim=-1, stable=True))
@@ -624,20 +561,13 @@ def phase_k1(calls, tag="kernels"):
         res["ms"] += ms
         res["nbytes"] += nbytes
         res["flops"] += flops
-        label = ("kernel" if fused else "old chain (K1 + amin)" if mode == "min_d2"
-                 else "old chain (K1 + sort + mapping + cutoff)")
-        print(f"  K1 call {i}: G={g_total} M={m_tiles} {what}: {label} {ms:.4f} ms{extra} "
+        print(f"  K1 call {i}: G={g_total} M={m_tiles} {what}: kernel {ms:.4f} ms{extra} "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
-    if fused:
-        print(f"[{tag}] K1 over {len(calls)} calls: idx and lidx equal to the plain chain, the "
-              f"value mode equal to amin; kernel {res['ms']:.4f} ms, plain chain "
-              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})",
-              flush=True)
-    else:
-        res["plain_ms"] = None
-        print(f"[kernels] K1 (distance kernel, old tree) over {len(calls)} calls: chain "
-              f"{res['ms']:.4f} ms, its distance kernel {res['dist_ms']:.4f} ms", flush=True)
+    print(f"[{tag}] K1 over {len(calls)} calls: idx and lidx equal to the plain chain, the "
+          f"value mode equal to amin; kernel {res['ms']:.4f} ms, plain chain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})",
+          flush=True)
     res["library_ms"] = None  # no single PyTorch call searches the candidate tiles
     return res
 
@@ -650,13 +580,10 @@ def phase_k2(calls, tag="kernels", shapes=((1, 128), (64, 64), (256, 256), (512,
     comparison, all in fp32 on the CUDA cores).  Every (C, D) of
     ``shapes`` must be among the calls."""
     import torch
-    from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled, kpconv_tiled_plain
-
-    try:
-        from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_reduce
-        from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
-    except ImportError:  # a tree from before the phase split: K2 is one C entry
-        kpconv_tiled_reduce = None
+    from pcrcg_tpu_torch.ops.kpconv_tiled import (
+        kpconv_tiled, kpconv_tiled_plain, kpconv_tiled_reduce,
+    )
+    from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmul in full fp32
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, a_flops=0.0, w_flops=0.0,
@@ -690,22 +617,20 @@ def phase_k2(calls, tag="kernels", shapes=((1, 128), (64, 64), (256, 256), (512,
         nbytes = 4 * sum(t.numel() for t in (q, s, feats, lidx, tiles, kp, w)) + 4 * nq * (d + 1)
         ms = time_ms(lambda: kpconv_tiled(*args, **kw))
         plain_ms = time_ms(lambda: kpconv_tiled_plain(*args, **kw), iters=3)
-        split = ""
-        if kpconv_tiled_reduce is not None:
-            w2 = w.reshape(k_count * c_in, d)
-            weighted = kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count, **conf)[0]
-            b_err = rel_err(tc_gemm(weighted, w2), weighted @ w2)[1]
-            a_ms = time_ms(lambda: kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count,
-                                                       **conf))
-            b_ms = time_ms(lambda: tc_gemm(weighted, w2))
-            mm_ms = time_ms(lambda: torch.matmul(weighted, w2))
-            del weighted
-            plan = plan_gemm(nq, d, k_count * c_in,
-                             torch.cuda.get_device_properties(0).multi_processor_count)
-            split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, "
-                     f"rel {b_err:.1e} vs fp32 matmul], torch.matmul fp32 {mm_ms:.4f})")
-            for key, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
-                res[key] += val
+        w2 = w.reshape(k_count * c_in, d)
+        weighted = kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count, **conf)[0]
+        b_err = rel_err(tc_gemm(weighted, w2), weighted @ w2)[1]
+        a_ms = time_ms(lambda: kpconv_tiled_reduce(q, s, feats, lidx, tiles, kp, k_count,
+                                                   **conf))
+        b_ms = time_ms(lambda: tc_gemm(weighted, w2))
+        mm_ms = time_ms(lambda: torch.matmul(weighted, w2))
+        del weighted
+        plan = plan_gemm(nq, d, k_count * c_in,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+        split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, "
+                 f"rel {b_err:.1e} vs fp32 matmul], torch.matmul fp32 {mm_ms:.4f})")
+        for key, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
+            res[key] += val
         b3, b3_by = bound(nbytes, a_flops, TF32_PASSES * w_flops)
         b32 = bound(nbytes, a_flops + w_flops)[0]
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes),
@@ -865,47 +790,6 @@ def phase_k3_k4(calls, tag="kernels"):
     return k3, k4
 
 
-def phase_k3_unfused(calls):
-    """K3's candidate-tile entry on a tree from before K4 was folded into
-    it (dW and dnx written): checked and timed as that tree's kernel, for
-    the comparison of K3 + K4 with the fused entry."""
-    import torch
-    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_bwd, kpconv_bwd_plain
-
-    res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
-    for i, (args, kw) in enumerate(calls):
-        q, s, lidx, tiles, kp, w, g, weighted = args[:8]
-        dw, dnx = kpconv_bwd(*args, **kw)
-        p_dw, p_dnx = kpconv_bwd_plain(*args, **kw)
-        torch.cuda.synchronize()
-        pairs = [(dw, p_dw)] + ([] if dnx is None else [(dnx, p_dnx)])
-        errs = [rel_err(a, b) for a, b in pairs]
-        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        check(rel <= 1e-4, f"K3 call {i}: max relative error {rel}")
-        k_count, c_in, d = w.shape
-        nq, h = q.shape[0], lidx.shape[1]
-        flops = 2.0 * nq * k_count * c_in * d  # dW
-        nbytes = 4 * sum(t.numel() for t in (q, s, lidx, tiles, kp, w, g, weighted, dw))
-        need_dnx = dnx is not None
-        if need_dnx:  # gW, the influences, dnx
-            flops += 2.0 * nq * k_count * c_in * d + 2.0 * nq * h * k_count * (c_in + 6)
-            nbytes += 4 * dnx.numel()
-        del dw, dnx, p_dw, p_dnx
-        ms = time_ms(lambda: kpconv_bwd(*args, **kw))
-        plain_ms = time_ms(lambda: kpconv_bwd_plain(*args, **kw), iters=3)
-        b_ms, b_by = bound(nbytes, flops)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", flops)):
-            res[key] += val
-        print(f"  K3 call {i}: Nq={nq} H={h} (C,D)=({c_in},{d}) dnx={need_dnx} max|d|={err:.3e}"
-              f" rel={rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
-    # No single PyTorch call computes dW, gW and the recomputed influences.
-    res["library_ms"] = None
-    return res
-
-
 def _scatter_phase(key, calls, kernel, plain, library, count):
     """Shared K4 / K5 check: kernel vs plain version, then kernel, plain and
     the single index_add_ over pre-resolved rows (with its output's zero
@@ -935,39 +819,6 @@ def _scatter_phase(key, calls, kernel, plain, library, count):
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"])
     return res
-
-
-def phase_k4_unfused(calls):
-    """K4 on a tree from before it was folded into K3 (see
-    ``phase_k3_unfused``)."""
-    import torch
-    from pcrcg_tpu_torch.ops.kpconv_common import support_rows
-    from pcrcg_tpu_torch.ops.kpconv_tiled import scatter_ds_feats, scatter_ds_feats_plain
-
-    def resolved(args):
-        dnx, lidx, tiles, ns = args[:4]
-        tile = args[4] if len(args) > 4 else 128
-        row, valid = support_rows(lidx, tiles, dnx.shape[0], ns, tile)
-        return row, valid, ns
-
-    def count(args):
-        dnx, lidx, tiles = args[:3]
-        _, valid, ns = resolved(args)
-        n_real = int(valid.sum())
-        c_in = dnx.shape[2]
-        return 4 * (n_real * c_in + lidx.numel() + tiles.numel() + ns * c_in), float(n_real * c_in)
-
-    def library(args):
-        # The real (query, neighbor) rows only, resolved outside the timing:
-        # the kernel skips shadows, and so does this index_add_.
-        dnx = args[0]
-        # The zero fill is timed, as the kernel's wrapper makes it.
-        row, valid, ns = resolved(args)
-        rows, src = row[valid], dnx[valid]
-        c_in = dnx.shape[2]
-        return lambda: torch.zeros(ns, c_in, device=dnx.device).index_add_(0, rows, src)
-
-    return _scatter_phase("K4", calls, scatter_ds_feats, scatter_ds_feats_plain, library, count)
 
 
 def phase_k5(calls, tag="kernels"):
@@ -1063,15 +914,11 @@ def _gathered_conv_phase(key, calls, kernel, plain, shapes, tag="kernels-untiled
     B's operands (a diagnostic), the plain version; bound with the W product
     as three TF32 passes, the all-fp32 rule beside it.  K7 also counts the
     queries whose count differs under the TPU kernel's s_all - s_coord
-    rule.  On a tree without ``kpconv_gathered_reduce`` (one C entry, the
-    SGEMM) only the kernel and its plain version are timed."""
+    rule."""
     import torch
+    from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_gathered_reduce
+    from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
 
-    try:
-        from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_gathered_reduce
-        from pcrcg_tpu_torch.ops.tc_gemm import plan_gemm, tc_gemm
-    except ImportError:
-        kpconv_gathered_reduce = None
     torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmul in full fp32
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, a_flops=0.0, w_flops=0.0, nbytes=0.0,
                a_ms=0.0, b_ms=0.0, matmul_ms=0.0, tpu_rule_diff=0, queries=0)
@@ -1108,24 +955,22 @@ def _gathered_conv_phase(key, calls, kernel, plain, shapes, tag="kernels-untiled
                       + n * (d + 1))
         ms = time_ms(lambda: kernel(*args, **kw))
         plain_ms = time_ms(lambda: plain(*args, **kw), iters=3)
-        split = ""
-        if kpconv_gathered_reduce is not None:
-            w_rows = w[:, c_skip:, :].reshape(k_count * c_in, d).contiguous()
-            weighted_t = kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf)[0]
-            b_out = tc_gemm(weighted_t, w_rows, trans_a=True)
-            b64 = fp64_err(b_out, weighted_t.T, w_rows)
-            check(b64 <= 1e-5, f"{key} call {i}: phase B vs float64 {b64}")
-            del b_out
-            a_ms = time_ms(lambda: kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf))
-            b_ms = time_ms(lambda: tc_gemm(weighted_t, w_rows, trans_a=True))
-            mm_ms = time_ms(lambda: torch.matmul(weighted_t.T, w_rows))
-            del weighted_t, w_rows
-            plan = plan_gemm(n, d, k_count * c_in,
-                             torch.cuda.get_device_properties(0).multi_processor_count)
-            split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, vs f64 "
-                     f"{b64:.1e}], torch.matmul fp32 {mm_ms:.4f})")
-            for k, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
-                res[k] += val
+        w_rows = w[:, c_skip:, :].reshape(k_count * c_in, d).contiguous()
+        weighted_t = kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf)[0]
+        b_out = tc_gemm(weighted_t, w_rows, trans_a=True)
+        b64 = fp64_err(b_out, weighted_t.T, w_rows)
+        check(b64 <= 1e-5, f"{key} call {i}: phase B vs float64 {b64}")
+        del b_out
+        a_ms = time_ms(lambda: kpconv_gathered_reduce(geom, feats_t, c_skip, kp, *conf))
+        b_ms = time_ms(lambda: tc_gemm(weighted_t, w_rows, trans_a=True))
+        mm_ms = time_ms(lambda: torch.matmul(weighted_t.T, w_rows))
+        del weighted_t, w_rows
+        plan = plan_gemm(n, d, k_count * c_in,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+        split = (f" (phase A {a_ms:.4f}, phase B {b_ms:.4f} [split-K {plan.splits}, vs f64 "
+                 f"{b64:.1e}], torch.matmul fp32 {mm_ms:.4f})")
+        for k, val in (("a_ms", a_ms), ("b_ms", b_ms), ("matmul_ms", mm_ms)):
+            res[k] += val
         b3, b3_by = bound(nbytes, a_flops, TF32_PASSES * w_flops)
         b32 = bound(nbytes, a_flops + w_flops)[0]
         for k, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes),
@@ -1236,21 +1081,13 @@ def phase_k3g(calls, tag="kernels-untiled"):
     (relative 1e-4), dW bit for bit against a second run and within 1e-5 of
     its largest entry against float64, as is gW_t's product; timed with
     its products apart and ``torch.matmul`` in fp32 on their operands (a
-    diagnostic), as ``phase_k3_k4``.  On a tree whose products are not on
-    the tensor cores (``tc_gemm`` without the transposed layouts) only the
-    entry and its plain version are timed."""
-    import inspect
+    diagnostic), as ``phase_k3_k4``."""
     import torch
     from pcrcg_tpu_torch.ops.kpconv_fused import (
-        _gathered_weighted, kpconv_fused_bwd, kpconv_fused_bwd_plain,
+        _gathered_weighted, kpconv_fused_bwd, kpconv_fused_bwd_plain, kpconv_gathered_reduce,
     )
     from pcrcg_tpu_torch.ops.tc_gemm import tc_gemm
 
-    try:  # K6's phase A as its own launch, the recomputation of weighted
-        from pcrcg_tpu_torch.ops.kpconv_fused import kpconv_gathered_reduce
-    except ImportError:
-        kpconv_gathered_reduce = None
-    split = "trans_b" in inspect.signature(tc_gemm).parameters
     torch.backends.cuda.matmul.allow_tf32 = False  # the diagnostic matmuls in full fp32
     res = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, prod_flops=0.0, nbytes=0.0,
                dw_ms=0.0, gw_ms=0.0, matmul_ms=0.0, old_flops=0.0, a_ms=0.0)
@@ -1290,26 +1127,23 @@ def phase_k3g(calls, tag="kernels-untiled"):
         del dnx_t, dw, dw_again, p_dnx, p_dw
         ms = time_ms(lambda: kpconv_fused_bwd(*args, **kw))
         plain_ms = time_ms(lambda: kpconv_fused_bwd_plain(*args, **kw), iters=3)
-        products = ""
-        if split:
-            dw_ms = time_ms(lambda: tc_gemm(weighted_t, g))
-            mm_ms = time_ms(lambda: torch.matmul(weighted_t, g))
-            gw_ms = gw64 = 0.0
-            if need_dnx:
-                gw64 = fp64_err(tc_gemm(w2, g, trans_b=True), w2, g.T)
-                check(gw64 <= 1e-5, f"K3 gathered call {i}: gW_t vs float64 {gw64}")
-                gw_ms = time_ms(lambda: tc_gemm(w2, g, trans_b=True))
-                mm_ms += time_ms(lambda: torch.matmul(w2, g.T))
-            for key, val in (("dw_ms", dw_ms), ("gw_ms", gw_ms), ("matmul_ms", mm_ms)):
-                res[key] += val
-            products = (f" (products dW {dw_ms:.4f} + gW {gw_ms:.4f}; torch.matmul fp32 "
-                        f"{mm_ms:.4f}; vs f64 dW {dw64:.1e} gW {gw64:.1e})")
-        if kpconv_gathered_reduce is not None:
-            # K6's phase A on the same operands; the entry runs it without
-            # the neighbor count.
-            a_ms = time_ms(lambda: kpconv_gathered_reduce(rel, nx_t, 0, kp, *args[5:8]))
-            res["a_ms"] += a_ms
-            products += f" recompute (phase A, with the count) {a_ms:.4f}"
+        dw_ms = time_ms(lambda: tc_gemm(weighted_t, g))
+        mm_ms = time_ms(lambda: torch.matmul(weighted_t, g))
+        gw_ms = gw64 = 0.0
+        if need_dnx:
+            gw64 = fp64_err(tc_gemm(w2, g, trans_b=True), w2, g.T)
+            check(gw64 <= 1e-5, f"K3 gathered call {i}: gW_t vs float64 {gw64}")
+            gw_ms = time_ms(lambda: tc_gemm(w2, g, trans_b=True))
+            mm_ms += time_ms(lambda: torch.matmul(w2, g.T))
+        for key, val in (("dw_ms", dw_ms), ("gw_ms", gw_ms), ("matmul_ms", mm_ms)):
+            res[key] += val
+        products = (f" (products dW {dw_ms:.4f} + gW {gw_ms:.4f}; torch.matmul fp32 "
+                    f"{mm_ms:.4f}; vs f64 dW {dw64:.1e} gW {gw64:.1e})")
+        # K6's phase A on the same operands; the entry runs it without
+        # the neighbor count.
+        a_ms = time_ms(lambda: kpconv_gathered_reduce(rel, nx_t, 0, kp, *args[5:8]))
+        res["a_ms"] += a_ms
+        products += f" recompute (phase A, with the count) {a_ms:.4f}"
         del weighted_t
         b_ms, b_by = bound(nbytes, rest, TF32_PASSES * prod)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("nbytes", nbytes), ("flops", rest),
@@ -1320,18 +1154,13 @@ def phase_k3g(calls, tag="kernels-untiled"):
               f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
     res["bound_ms"], res["bound_by"] = bound(res["nbytes"], res["flops"],
                                              TF32_PASSES * res["prod_flops"])
-    summary = ""
-    if split:
-        products = res["dw_ms"] + res["gw_ms"]
-        rate = TF32_PASSES * res["prod_flops"] / (products * 1e-3) / 1e12
-        summary = (f" = products {products:.4f} (dW {res['dw_ms']:.4f} + gW {res['gw_ms']:.4f};"
-                   f" {rate:.1f} TFLOP/s of TF32 product; torch.matmul fp32 on the same "
-                   f"operands, allow_tf32=False: {res['matmul_ms']:.4f})")
-        if res["a_ms"] > 0:
-            summary += (f" + recompute of weighted (phase A, timed with the count it skips) "
-                        f"{res['a_ms']:.4f} + rest {res['ms'] - products - res['a_ms']:.4f}")
-        else:
-            summary += f" + rest {res['ms'] - products:.4f}"
+    products = res["dw_ms"] + res["gw_ms"]
+    rate = TF32_PASSES * res["prod_flops"] / (products * 1e-3) / 1e12
+    summary = (f" = products {products:.4f} (dW {res['dw_ms']:.4f} + gW {res['gw_ms']:.4f};"
+               f" {rate:.1f} TFLOP/s of TF32 product; torch.matmul fp32 on the same "
+               f"operands, allow_tf32=False: {res['matmul_ms']:.4f})"
+               f" + recompute of weighted (phase A, timed with the count it skips) "
+               f"{res['a_ms']:.4f} + rest {res['ms'] - products - res['a_ms']:.4f}")
     print(f"[{tag}] K3 gathered over {len(calls)} calls: {res['ms']:.4f} ms{summary}; "
           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}; products as 3xTF32); all-fp32 "
           f"rule {bound(res['nbytes'], res['old_flops'])[0]:.4f} ms", flush=True)
@@ -2838,7 +2667,7 @@ def phase_dense(batch):
 
 
 def phase_dp(work):
-    """[dp]: ``train_step_dp`` over two ranks of ``torch.distributed`` that
+    """[dp]: ``train_step`` on a mesh of two ranks of ``torch.distributed`` that
     share the one card (``parallel/launch.py::dp_steps``), ``Config()`` at
     full width, a global batch of 2 pairs (the assets pair and a crop of
     it), a pair a rank, 3 steps.  Rank 0's stats and parameters after step 1
@@ -3011,7 +2840,7 @@ CLOUD_GROUPS = {"encoder_blocks.": "encoder", "gnn.": "GCN", "decoder_blocks.": 
 
 
 def phase_cloud(tag, work, cfg, batch, state_dict, uniforms, images=None):
-    """[cloud*]: ``train_step_dp`` on the cloud axis (``make_mesh(n_data,
+    """[cloud*]: ``train_step`` on the cloud axis (``make_mesh(n_data,
     2)``, ``parallel/launch.py::dp_steps``): ``2 · n_data`` gloo ranks
     sharing the card (NCCL takes a card a rank), a pair a data row, one step
     per entry of ``uniforms``.  Rank 0's stats and parameters after step 1
@@ -3199,13 +3028,7 @@ def earlier_slices(repo):
           f"K1: {len(k1_calls)} serving and {len(k1_loss)} loss calls, expected 9 and 3")
     results["K1"] = phase_k1(k1_calls + k1_loss)
     del k1_calls, k1_loss
-    if "K4" in calls:  # a tree from before K4 was folded into K3
-        results.update(K3=phase_k3_unfused(calls["K3"]), K4=phase_k4_unfused(calls["K4"]))
-        k3_ms, k4_ms = results["K3"]["ms"], results["K4"]["ms"]
-        print(f"[kernels] K3 + K4 unfused: {k3_ms:.4f} + {k4_ms:.4f} = {k3_ms + k4_ms:.4f} ms",
-              flush=True)
-    else:
-        results["K3"], results["K4"] = phase_k3_k4(calls["K3"])
+    results["K3"], results["K4"] = phase_k3_k4(calls["K3"])
     results["K5"] = phase_k5(calls["K5"])
     del calls
     torch.cuda.empty_cache()

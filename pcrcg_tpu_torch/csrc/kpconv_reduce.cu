@@ -34,9 +34,9 @@
 //   weighted and nn are run-to-run bit-identical.  Each weighted entry is
 //   one fmaf chain over h in order, as in the kernel this replaces.
 // 62-83 KB of shared memory (H = 40) and 127 registers leave two blocks an
-// SM.  Measured side by side on one H100 over the 10 full-width calls
-// (kernel_variants.py): 1.395 ms; the counts' sums added across the
-// query's lanes by a shuffle butterfly inside the walk instead 2.244;
+// SM.  Measured side by side on one H100 over the 10 full-width calls,
+// each variant an edit of this source: 1.395 ms; the counts' sums added
+// across the query's lanes by a shuffle butterfly inside the walk instead 2.244;
 // loading 2 neighbors ahead 1.668, 4 ahead 1.423.
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -49,9 +49,9 @@
 // fewer, longer blocks leave the last wave mostly empty.  A warp takes the
 // distances of two 32-wide candidate steps before it admits them, so the
 // two chains overlap.  Measured side by side on one H100 over the 9
-// searches of a serving pyramid (kernel_variants.py): 0.341 ms; 4 blocks an
-// SM 0.380, 16 0.345, no split 0.755; one step at a time 0.363, four 0.356;
-// without the ranking and its writes 0.322.
+// searches of a serving pyramid, each variant an edit of this source:
+// 0.341 ms; 4 blocks an SM 0.380, 16 0.345, no split 0.755; one step at a
+// time 0.363, four 0.356; without the ranking and its writes 0.322.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>

@@ -15,8 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from pcrcg_tpu_torch.models.kpconv import KPConv, stack_inds
-from pcrcg_tpu_torch.ops.kpconv_tiled import max_pool_tiled
+from pcrcg_tpu_torch.models.kpconv import KPConv
 from pcrcg_tpu_torch.ops.masked import masked_instance_norm, pad_gather
 
 
@@ -29,19 +28,6 @@ def init_dense(layer: nn.Module, generator: torch.Generator) -> None:
         layer.weight.uniform_(-bound, bound, generator=generator)
         if getattr(layer, "bias", None) is not None:
             layer.bias.zero_()
-
-
-def max_pool_first(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """The tiled route's strided shortcut: x [B,Ns,C], inds [B,Nq,H] (pad =
-    Ns) -> [B,Nq,C]; shadow neighbors contribute a zero row (reference
-    blocks.py:86-103).  The B clouds stack into one ``max_pool_tiled`` call,
-    whose gradient goes to the first maximal neighbor (K5 on the card), as
-    the JAX package's tiled route does (pcrcg_tpu/models/blocks.py:195-211);
-    the untiled routes split it among tied maxima (``models/kpconv.py::
-    max_pool``)."""
-    b, ns, c = x.shape
-    nq = inds.shape[1]
-    return max_pool_tiled(x.reshape(b * ns, c), stack_inds(inds, ns)).reshape(b, nq, c)
 
 
 def closest_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -112,20 +98,16 @@ class SimpleBlock(nn.Module):
         self.norm = NormBlock()
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
-                tiled_meta=None, psum=None):
-        x = self.KPConv(q_pts, s_pts, neighb_inds, x, neighbors_rel, tiled_meta=tiled_meta)
+                tile_meta=None, psum=None):
+        x = self.KPConv(q_pts, s_pts, neighb_inds, x, neighbors_rel, tile_meta=tile_meta)
         return F.leaky_relu(self.norm(x, q_mask, psum), 0.1)
 
 
 class ResnetBottleneckBlock(nn.Module):
     """1x1 down -> KPConv -> 1x1 up, with a shortcut that is max-pooled over
-    the pool neighbors when strided (reference blocks.py:593-678).  The
-    strided shortcut, as pcrcg_tpu/models/blocks.py:182-229: on the tiled
-    route ``max_pool_first``, a deformable conv's too (the conv ignores the
-    metadata; the JAX package's deformable shortcut is the dense
-    ``max_pool``, which differs from it only in how a gradient splits
-    among exactly tied maxima); on the untiled ``fused`` route the max over
-    the conv's own merged gather (K7); otherwise the dense ``max_pool``."""
+    the pool neighbors when strided (reference blocks.py:593-678):
+    ``KPConv.strided`` returns it, by its route's rule
+    (``models/kpconv.py::conv_route``)."""
 
     def __init__(self, in_dim: int, out_dim: int, radius: float, kp_extent: float,
                  config_kp: dict, strided: bool = False, kp_seed: int = 0,
@@ -143,16 +125,14 @@ class ResnetBottleneckBlock(nn.Module):
         )
 
     def forward(self, x, q_pts, s_pts, neighb_inds, q_mask, s_mask, neighbors_rel=None,
-                tiled_meta=None, psum=None):
+                tile_meta=None, psum=None):
         y = self.unary1(x, s_mask, psum) if self.unary1 is not None else x
-        if self.strided and tiled_meta is not None:
-            y = self.KPConv(q_pts, s_pts, neighb_inds, y, tiled_meta=tiled_meta)
-            shortcut = max_pool_first(x, neighb_inds)
-        elif self.strided:
-            y, shortcut = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel, shortcut_x=x)
+        if self.strided:
+            y, shortcut = self.KPConv.strided(q_pts, s_pts, neighb_inds, y, x, neighbors_rel,
+                                              tile_meta)
         else:
-            y = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel, tiled_meta=tiled_meta)
-            shortcut = x
+            y, shortcut = self.KPConv(q_pts, s_pts, neighb_inds, y, neighbors_rel,
+                                      tile_meta=tile_meta), x
         y = F.leaky_relu(self.norm_conv(y, q_mask, psum), 0.1)
         y = self.unary2(y, q_mask, psum)
         if self.unary_shortcut is not None:

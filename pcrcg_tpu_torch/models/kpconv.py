@@ -1,43 +1,24 @@
 """Kernel-point convolution (counterpart of ``pcrcg_tpu/models/kpconv.py``).
 
-``kpconv`` is one conv over one point set, on the route ``impl`` selects,
-as the JAX package's ``kpconv`` (reference models/blocks.py:284-372):
+``conv_route`` picks each conv's route, the one place that does; ``KPConv``
+dispatches on it, and its docstring holds the route table.  The functional
+``kpconv(impl=)`` is the JAX package's ``kpconv``, on a route without tile
+metadata; its ``dense`` route (``_dense``) is the reference the kernels are
+tested against.  The untiled routes' gathers are ``index_select``s whose
+backward is an ``index_add_``.
 
-* ``xla`` — the plain dense formulation: gather neighbor coordinates
-  (shadow -> PAD_COORD, so zero influence) and features (shadow -> 0),
-  influence against the K kernel points, weighted reduce over neighbors,
-  one [K·C] x [K·C, D] contraction, division by the reference's
-  positive-feature-sum neighbor count.  The reference the kernels are
-  tested against.
-* ``fused`` — K6 (``ops/kpconv_fused.py::kpconv_fused_ad``) over the
-  gathered features [H, C, N] and the level's shared rel; with
-  ``shortcut_x`` (the strided blocks) K7 over ONE merged gather of
-  [coords | 0 pad | conv features | shortcut features], whose shortcut is
-  the max over the same gathered rows.
-* ``reduce`` — K8 (``ops/kpconv_pallas.py::kpconv_weighted_reduce``) and a
-  ``torch.matmul`` with W, where C ≥ 8 under sum aggregation; otherwise the
-  dense formulation.  Serves only: K8 has no backward.
-
-The ``KPConv`` module stacks both clouds into one call per conv.  With the
-tiled search's metadata (the default ``kpconv_tiled`` route) it runs the
-candidate-tile kernel, ``ops/kpconv_tiled.py::kpconv_tiled_ad`` (K2
-forward, K3 + K4 backward).  The gathers of the untiled routes are
-``index_select``s whose backward is an ``index_add_``.
-
-Deformable (and modulated) KPConv (reference blocks.py:235-372):
-``kpconv_deformable`` is the dense formulation against per-query kernel
-points, plain PyTorch as in the JAX package (pcrcg_tpu/models/kpconv.py:
-253-334, which has no Pallas kernel for it).  Its rigid ``offset_conv``
-sub-module predicts the offsets (and modulations) on the module's route
-without the tiled metadata: K6 forward and K3's gathered entry backward on
-the card for ``fused``.  Traced (``utils/profiling.py``): the spans
-``deform.offset`` (the sub-conv and its bias) and ``deform.conv`` (the
-deformed conv), and by query level the counters ``deform.real_neighbors``
-(non-shadow list entries), ``deform.kept_neighbors`` (those within
-KP_extent of some deformed kernel point: what the conv keeps) and
-``deform.cap_rows`` (Nq·H: the rows the dense formulation computes over).
+``kpconv_deformable`` (reference blocks.py:235-372) is the dense
+formulation against per-query kernel points, plain PyTorch as in the JAX
+package (pcrcg_tpu/models/kpconv.py:253-334).  Traced
+(``utils/profiling.py``): the spans ``deform.offset`` (the offset sub-conv
+and its bias) and ``deform.conv``, and by query level the counters
+``deform.real_neighbors`` (non-shadow list entries),
+``deform.kept_neighbors`` (those within KP_extent of some deformed kernel
+point: what the conv keeps) and ``deform.cap_rows`` (Nq·H).
 """
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -46,21 +27,54 @@ from torch import nn
 from pcrcg_tpu_torch.geom.kernel_points import layer_kernel_points
 from pcrcg_tpu_torch.ops import kpconv_fused, kpconv_pallas
 from pcrcg_tpu_torch.ops.kpconv_common import influence_fn
-from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_ad
+from pcrcg_tpu_torch.ops.kpconv_tiled import kpconv_tiled_ad, max_pool_tiled
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, pad_gather, pad_gather_rows
 from pcrcg_tpu_torch.utils.profiling import record, recording, span
 
 IMPLS = ("fused", "reduce", "xla")
 
 
-def resolve_kpconv_impl(impl: str) -> str:
-    """``auto`` -> ``fused`` on every device: on the CPU the port runs each
-    kernel's plain version.  (The JAX package resolves ``auto`` to ``xla``
-    off the TPU.)"""
+# ``conv``: the route (``KPConv``'s table); ``shortcut``: a strided conv's
+# rule (``max_pool_first``, ``merged``, ``max_pool``), else None;
+# ``shared_rel``: the conv reads its level's rel (``KPFCNN``).
+ConvRoute = collections.namedtuple("ConvRoute", "conv shortcut shared_rel")
+
+
+def conv_route(impl: str = "auto", tiled: bool = True, aggregation: str = "sum", *,
+               strided: bool = False, deformable: bool = False, in_channels: int = 0,
+               tiled_pyramid: bool = False, backward: bool = False) -> ConvRoute:
+    """The route of one conv (``KPConv``'s table) from the config's
+    ``kpconv_impl`` (``auto`` -> ``fused``; the JAX package takes ``xla``
+    off the TPU), ``kpconv_tiled`` and aggregation, the block's
+    ``strided``, ``deformable`` and ``in_channels``, and ``tiled_pyramid``
+    (the pyramid carries tile metadata).  ``backward`` refuses ``reduce``.
+    Shortcuts and shared rels as pcrcg_tpu/models/blocks.py:182-229 and
+    kpfcnn.py:191-208, but a deformable conv on a tile pyramid takes
+    ``max_pool_first`` (the JAX package ``max_pool``: they differ only in
+    how a gradient splits among exactly tied maxima)."""
     impl = "fused" if impl == "auto" else impl
     if impl not in IMPLS:
         raise ValueError(f"unknown kpconv_impl {impl!r}: one of auto, {', '.join(IMPLS)}")
-    return impl
+    if backward and impl == "reduce":
+        raise NotImplementedError(
+            "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
+            " has no backward, and the JAX package defines no VJP for it"
+        )
+    tile_route = impl == "fused" and tiled and tiled_pyramid
+    if deformable:
+        conv = "deformable"
+    elif tile_route:
+        conv = "tiled"
+    elif impl == "fused":
+        conv = "merged" if strided else "gathered"
+    elif impl == "reduce" and aggregation == "sum" and in_channels >= 8:
+        conv = "reduce"
+    else:
+        conv = "dense"
+    if not strided:
+        return ConvRoute(conv, None, conv != "tiled")
+    shortcut = "max_pool_first" if tile_route else "merged" if conv == "merged" else "max_pool"
+    return ConvRoute(conv, shortcut, impl != "fused")
 
 
 def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -72,9 +86,23 @@ def max_pool(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     return pad_gather_rows(x, inds).amax(1)
 
 
+def max_pool_first(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """The tile route's strided shortcut: x [B,Ns,C], inds [B,Nq,H] (pad =
+    Ns) -> [B,Nq,C]; shadow neighbors contribute a zero row.  The B clouds
+    stack into one ``max_pool_tiled`` call, whose gradient goes to the
+    first maximal neighbor (K5 on the card), as the JAX package's tiled
+    route does (pcrcg_tpu/models/blocks.py:195-211)."""
+    b, ns, c = x.shape
+    nq = inds.shape[1]
+    return max_pool_tiled(x.reshape(b * ns, c), stack_inds(inds, ns)).reshape(b, nq, c)
+
+
 def _dense(neighbors, neighb_x, kernel_points, weights, kp_extent, influence, aggregation):
-    """The dense formulation on gathered rel [Nq, H, 3] and features
-    [Nq, H, C] -> [Nq, D]."""
+    """The plain formulation (reference models/blocks.py:284-372) on
+    gathered rel [Nq, H, 3] (shadows at PAD_COORD: zero influence) and
+    features [Nq, H, C] (shadows 0) -> [Nq, D]: influences against the K
+    kernel points, the weighted reduce over neighbors, one [K·C] x [K·C, D]
+    contraction, over the reference's positive-feature-sum neighbor count."""
     diff = neighbors[:, :, None, :] - kernel_points[None, None, :, :]
     sq_distances = (diff * diff).sum(-1)  # [Nq,H,K]
     all_weights = influence_fn(sq_distances, kp_extent, influence)
@@ -110,32 +138,32 @@ def kpconv(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_extent: floa
            influence: str = "linear", aggregation: str = "sum", neighbors_rel=None,
            ones_features: bool = False, impl: str = "xla", shortcut_x=None):
     """q_pts [Nq,3], s_pts [Ns,3], neighb_inds [Nq,H] (pad = Ns), x [Ns,C],
-    kernel_points [K,3], weights [K,C,D] -> [Nq,D].
+    kernel_points [K,3], weights [K,C,D] -> [Nq,D], on ``impl``'s route
+    without tile metadata (``conv_route``).
 
     ``neighbors_rel`` [Nq,H,3] (gathered neighbor coordinates minus query)
     may be computed once per pyramid level and shared by its convs.  With
     ``shortcut_x`` [Ns, C2] it also returns, second, the strided block's
     max-pooled shortcut ``max_h shortcut_x[neighbor]`` (zero shadow rows):
-    on ``fused`` from the conv's own merged gather, else ``max_pool``."""
-    if impl == "fused" and shortcut_x is not None:
+    on ``merged`` from the conv's own gather, else ``max_pool``."""
+    conv = conv_route(impl, False, aggregation, strided=shortcut_x is not None,
+                      in_channels=x.shape[-1]).conv
+    if conv == "merged":
         return _merged(q_pts, s_pts, neighb_inds, x, shortcut_x, kernel_points, weights,
                        kp_extent, influence, aggregation, ones_features)
     if neighbors_rel is None:
         neighbors_rel = pad_gather(s_pts, neighb_inds, fill_value=PAD_COORD) - q_pts[:, None, :]
-    if ones_features:
-        # Ones-column input: the gathered feature is "neighbor index is real".
-        nx = (neighb_inds < x.shape[0]).to(x.dtype)[..., None]
-    else:
-        nx = None
+    # Ones-column input: the gathered feature is "neighbor index is real".
+    nx = (neighb_inds < x.shape[0]).to(x.dtype)[..., None] if ones_features else None
 
-    if impl == "fused":
+    if conv == "gathered":
         nx = pad_gather_rows(x, neighb_inds) if nx is None else nx
         out, neighbor_num = kpconv_fused.kpconv_fused_ad(
             neighbors_rel.contiguous(), nx.permute(1, 2, 0).contiguous(), kernel_points,
             weights, kp_extent, influence, aggregation, needs_dnx=not ones_features,
         )
         out = out / neighbor_num[:, None]
-    elif impl == "reduce" and aggregation == "sum" and x.shape[-1] >= 8:
+    elif conv == "reduce":
         nx = pad_gather_rows(x, neighb_inds) if nx is None else nx
         weighted, neighbor_num = kpconv_pallas.kpconv_weighted_reduce(
             neighbors_rel.contiguous(), nx.contiguous(), kernel_points, kp_extent, influence,
@@ -197,11 +225,11 @@ def kpconv_deformable(q_pts, s_pts, neighb_inds, x, kernel_points, weights, kp_e
     return out / neighbor_num[:, None].to(out.dtype)
 
 
-def _stack_tiled(tiled_meta, nq: int, ns: int, tile: int):
+def _stack_tiled(tile_meta, nq: int, ns: int, tile: int):
     """Stack B clouds into one candidate-tile problem: per-cloud supports
     padded to whole tiles, tile ids offset by the cloud's tile base, and
     queries padded to whole 128-query groups."""
-    lidx, tiles = tiled_meta  # [B, G·128, H], [B, G, M]
+    lidx, tiles = tile_meta  # [B, G·128, H], [B, G, M]
     b, g_count, m_tiles = tiles.shape
     ns_pad = -(-ns // tile) * tile
     boff = (torch.arange(b, device=tiles.device, dtype=tiles.dtype) * (ns_pad // tile))
@@ -234,21 +262,44 @@ class KPConv(nn.Module):
     7919, out width 3K, or 4K when modulated) and the zero-initialized
     ``offset_bias`` (reference blocks.py:179-199).  ``level`` is the
     query level (``KPFCNN`` sets it), which indexes the ``deform.*``
-    counters."""
+    counters.  ``impl`` and ``tiled`` are the config's ``kpconv_impl`` and
+    ``kpconv_tiled``.
+
+    The routes (``conv_route`` picks one a call; both clouds go in one):
+
+    * ``tiled``: K2 on the candidate tiles (``ops/kpconv_tiled.py::
+      kpconv_tiled_ad``), backward K3 with K4 folded in; strided shortcut
+      ``max_pool_first`` (K5).  ``fused`` and ``kpconv_tiled`` on a pyramid
+      with tile metadata: the default.
+    * ``gathered``: K6 (``ops/kpconv_fused.py::kpconv_fused_ad``) over the
+      gathered features and the level's shared rel, backward K3's gathered
+      entry: ``fused`` otherwise.
+    * ``merged``: the strided ``gathered``, K7 over ONE merged gather
+      [coords | 0 pad | conv features | shortcut features]; the shortcut
+      is the max over the same rows.
+    * ``reduce``: K8 (``ops/kpconv_pallas.py``) and a matmul with W, where
+      C >= 8 under sum aggregation; serves only.  Shortcut ``max_pool``.
+    * ``dense``: the plain formulation, for ``xla`` and ``reduce``'s other
+      convs.  Shortcut ``max_pool``.
+    * ``deformable``: ``kpconv_deformable`` after the rigid offset sub-conv
+      on its own route without tile metadata (``gathered`` on ``fused``);
+      shortcut ``max_pool_first`` on a tile pyramid, else ``max_pool``."""
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
                  kp_extent: float, num_kernel_points: int = 15,
                  influence: str = "linear", aggregation: str = "sum",
                  fixed: str = "center", seed: int = 0, ones_features: bool = False,
-                 tile: int = 128, impl: str = "fused", deformable: bool = False,
-                 modulated: bool = False):
+                 tile: int = 128, impl: str = "fused", tiled: bool = True,
+                 deformable: bool = False, modulated: bool = False):
         super().__init__()
+        conv_route(impl)  # an unknown impl fails here
         self.kp_extent = kp_extent
         self.influence = influence
         self.aggregation = aggregation
         self.ones_features = ones_features
         self.tile = tile
-        self.impl = resolve_kpconv_impl(impl)
+        self.impl = impl
+        self.tiled = tiled
         self.deformable = deformable
         self.modulated = modulated
         self.level = 0
@@ -259,7 +310,7 @@ class KPConv(nn.Module):
             offset_dim = (4 if modulated else 3) * num_kernel_points
             self.offset_conv = KPConv(
                 in_channels, offset_dim, radius, kp_extent, num_kernel_points, influence,
-                aggregation, fixed, seed + 7919, ones_features, tile, impl)
+                aggregation, fixed, seed + 7919, ones_features, tile, impl, tiled)
             self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -268,44 +319,63 @@ class KPConv(nn.Module):
         with torch.no_grad():
             self.weights.uniform_(-bound, bound, generator=generator)
 
+    def route(self, strided: bool, tiled_pyramid: bool) -> ConvRoute:
+        """This conv's route, strided or not, on a pyramid with tile metadata or not."""
+        return conv_route(self.impl, self.tiled, self.aggregation, strided=strided,
+                          deformable=self.deformable, in_channels=self.weights.shape[1],
+                          tiled_pyramid=tiled_pyramid)
+
     def forward(self, q_pts, s_pts, neighb_inds, x, neighbors_rel=None, shortcut_x=None,
-                tiled_meta=None):
+                tile_meta=None):
         """q_pts [B,Nq,3], s_pts [B,Ns,3], neighb_inds [B,Nq,H] (pad = Ns),
         x [B,Ns,C] -> [B,Nq,D].  ``neighbors_rel`` [B,Nq,H,3]: the level's
-        shared rel.  ``shortcut_x`` [B,Ns,C2] also returns the max-pooled
-        shortcut [B,Nq,C2] (``fused``: from the conv's own gather; otherwise
-        ``max_pool``).  ``tiled_meta`` = (lidx [B,G·128,H], tiles [B,G,M])
-        from the tiled search selects the candidate-tile kernel on the
-        ``fused`` route (a deformable conv ignores it)."""
+        shared rel, or None.  ``tile_meta`` = (lidx [B,G·128,H], tiles
+        [B,G,M]): the tiled search's metadata of these lists, or None.  A
+        strided conv (``shortcut_x`` [B,Ns,C2]) returns (out, its
+        max-pooled shortcut [B,Nq,C2]); blocks call ``strided``."""
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
-        if self.deformable:
+        route = self.route(shortcut_x is not None, tile_meta is not None)
+        if route.conv == "tiled":
+            out = self._tiled(q_pts, s_pts, x, tile_meta)
+        elif route.conv == "deformable":
             out = self._deformable(q_pts, s_pts, neighb_inds, x, neighbors_rel)
+        else:  # the shortcut, if any, comes from the conv's own call
+            inds = stack_inds(neighb_inds, ns)
+            rel = None if neighbors_rel is None else neighbors_rel.reshape(b * nq, -1, 3)
+            sx = None if shortcut_x is None else shortcut_x.reshape(b * ns, -1)
+            out = kpconv(
+                q_pts.reshape(b * nq, 3), s_pts.reshape(b * ns, 3), inds,
+                x.reshape(b * ns, -1), self.kernel_points, self.weights,
+                float(self.kp_extent), self.influence, self.aggregation, neighbors_rel=rel,
+                ones_features=self.ones_features, impl=self.impl, shortcut_x=sx,
+            )
             if shortcut_x is None:
-                return out
-            return out, max_pool(shortcut_x.reshape(b * ns, -1),
-                                 stack_inds(neighb_inds, ns)).reshape(b, nq, -1)
-        if tiled_meta is not None and shortcut_x is None and self.impl == "fused":
-            return self._tiled(q_pts, s_pts, x, tiled_meta)
-        inds = stack_inds(neighb_inds, ns)
-        rel = None if neighbors_rel is None else neighbors_rel.reshape(b * nq, -1, 3)
-        sx = None if shortcut_x is None else shortcut_x.reshape(b * ns, -1)
-        out = kpconv(
-            q_pts.reshape(b * nq, 3), s_pts.reshape(b * ns, 3), inds, x.reshape(b * ns, -1),
-            self.kernel_points, self.weights, float(self.kp_extent), self.influence,
-            self.aggregation, neighbors_rel=rel, ones_features=self.ones_features,
-            impl=self.impl, shortcut_x=sx,
-        )
+                return out.reshape(b, nq, -1)
+            return tuple(t.reshape(b, nq, -1) for t in out)
         if shortcut_x is None:
-            return out.reshape(b, nq, -1)
-        out, shortcut = out
-        return out.reshape(b, nq, -1), shortcut.reshape(b, nq, -1)
+            return out
+        if route.shortcut == "max_pool_first":
+            return out, max_pool_first(shortcut_x, neighb_inds)
+        return out, max_pool(shortcut_x.reshape(b * ns, -1),
+                             stack_inds(neighb_inds, ns)).reshape(b, nq, -1)
+
+    def strided(self, q_pts, s_pts, neighb_inds, x, shortcut_x, neighbors_rel=None,
+                tile_meta=None):
+        """``forward(..., shortcut_x=)``, but a ``max_pool_first`` shortcut
+        runs after the module's call, so forward hooks around it
+        (``perfbench/core/trace.py::KPConvHooks``) time the conv alone; the
+        ``merged`` and ``max_pool`` rules take theirs inside the call."""
+        if self.route(True, tile_meta is not None).shortcut != "max_pool_first":
+            return self(q_pts, s_pts, neighb_inds, x, neighbors_rel, shortcut_x, tile_meta)
+        return (self(q_pts, s_pts, neighb_inds, x, neighbors_rel, tile_meta=tile_meta),
+                max_pool_first(shortcut_x, neighb_inds))
 
     def _deformable(self, q_pts, s_pts, neighb_inds, x, neighbors_rel):
         """Offsets (and modulations) from the rigid sub-conv, then
         ``kpconv_deformable`` over both clouds stacked (reference
         blocks.py:235-260: offsets scaled by KP_extent, modulations
-        2·sigmoid); the tiled metadata is not used."""
+        2·sigmoid)."""
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
         k = self.kernel_points.shape[0]
@@ -323,10 +393,10 @@ class KPConv(nn.Module):
             )
         return out.reshape(b, nq, -1)
 
-    def _tiled(self, q_pts, s_pts, x, tiled_meta):
+    def _tiled(self, q_pts, s_pts, x, tile_meta):
         b, nq = q_pts.shape[:2]
         ns = s_pts.shape[1]
-        lidx, tiles, ns_pad, nq_pad = _stack_tiled(tiled_meta, nq, ns, self.tile)
+        lidx, tiles, ns_pad, nq_pad = _stack_tiled(tile_meta, nq, ns, self.tile)
         if self.ones_features:
             x = torch.ones_like(s_pts[..., :1])
         out, nn_count = kpconv_tiled_ad(

@@ -6,16 +6,11 @@ axis, bottleneck projection + GCN, cross-cloud saliency by temperature
 softmax, nearest-upsample decoder fed [overlap score, saliency, gnn
 feats], L2-normalized descriptors and sigmoid scores with the NaN scrub.
 
-The KPConv route comes from the config, as in the JAX package:
-``kpconv_impl`` (``auto`` -> ``fused``) and, on ``fused``, ``kpconv_tiled``
-(candidate-tile kernels, the default, when the pyramid comes from the
-tiled search) or not (gathered features, K6 / K7).  Off the tiled route
-each level's rel is computed once, without gradient, and shared by its
-convs (the strided convs of ``fused`` compute theirs from the merged
-gather instead).  ``*_deformable`` blocks (``deformable: True``, with
-``modulated``) run the deformable KPConv of ``models/kpconv.py``, never on
-the candidate tiles; on the tiled route their strided shortcut is the
-route's ``max_pool_first``, as the rigid blocks'.
+Each KPConv's route comes from the config, as in the JAX package, and is
+picked by ``models/kpconv.py::conv_route`` (the table is in ``KPConv``'s
+docstring); ``*_deformable`` blocks (``deformable: True``, with
+``modulated``) run the deformable KPConv.  Each level's rel is computed
+once, without gradient, for the convs whose route reads it.
 
 On the cloud ('model') mesh axis (``forward(..., cloud=)``,
 ``parallel/cloud.py``) a rank holds one cloud: the pyramid and
@@ -48,7 +43,7 @@ from pcrcg_tpu_torch.models.blocks import (
     init_dense,
 )
 from pcrcg_tpu_torch.models.gcn import GCN, Conv1x1
-from pcrcg_tpu_torch.models.kpconv import KPConv, resolve_kpconv_impl
+from pcrcg_tpu_torch.models.kpconv import KPConv
 from pcrcg_tpu_torch.ops.masked import PAD_COORD, masked_softmax, pad_gather
 from pcrcg_tpu_torch.ops.pyramid import Pyramid
 from pcrcg_tpu_torch.parallel.cloud import CloudAxis
@@ -163,7 +158,8 @@ class KPFCNN(nn.Module):
             aggregation=cfg.aggregation_mode,
             fixed=cfg.fixed_kernel_points,
             tile=cfg.budgets.search_tile,
-            impl=resolve_kpconv_impl(cfg.kpconv_impl),
+            impl=cfg.kpconv_impl,
+            tiled=cfg.kpconv_tiled,
         )
         extent_ratio = cfg.KP_extent / cfg.conv_radius
         enc = []
@@ -220,13 +216,12 @@ class KPFCNN(nn.Module):
         with torch.no_grad():
             self.epsilon.fill_(-5.0)
 
-    def _shared_rel(self, pyramid: Pyramid, impl: str, tiled: bool):
+    def _shared_rel(self, pyramid: Pyramid, tiled_pyramid: bool):
         """The per-level rel [B, Nq, H, 3] (neighbor minus query, shadows at
         PAD_COORD), without gradient, as pcrcg_tpu/models/kpfcnn.py:191-208:
-        conv_rel for the non-strided convs of a level, unless the level's
-        first one runs the candidate-tile kernel (tiled and not
-        deformable); pool_rel for the strided ones, except on ``fused``,
-        whose strided convs use the merged gather."""
+        conv_rel for the non-strided convs of a level where the level's
+        first one reads it, pool_rel for the strided ones that read it
+        (``ConvRoute.shared_rel``)."""
 
         def rel_coords(q_pts, s_pts, neighb):
             return torch.stack([pad_gather(s_pts[b], neighb[b], PAD_COORD) - q_pts[b][:, None]
@@ -234,45 +229,42 @@ class KPFCNN(nn.Module):
 
         conv_rel, pool_rel = {}, {}
         with torch.no_grad():
-            for bp in self.plan.encoder:
+            for bp, block in zip(self.plan.encoder, self.encoder_blocks):
                 lvl = bp.layer
-                if bp.strided and impl != "fused" and lvl not in pool_rel:
+                reads = block.KPConv.route(bp.strided, tiled_pyramid).shared_rel
+                if bp.strided and reads and lvl not in pool_rel:
                     pool_rel[lvl] = rel_coords(pyramid.points[lvl + 1], pyramid.points[lvl],
                                                pyramid.pools[lvl])
                 if not bp.strided and lvl not in conv_rel:
-                    conv_rel[lvl] = None if tiled and not bp.deformable else rel_coords(
-                        pyramid.points[lvl], pyramid.points[lvl], pyramid.neighbors[lvl])
+                    conv_rel[lvl] = rel_coords(
+                        pyramid.points[lvl], pyramid.points[lvl], pyramid.neighbors[lvl]
+                    ) if reads else None
         return conv_rel, pool_rel
 
     def encode(self, pyramid: Pyramid, features: torch.Tensor, psum=None):
         """The joint encoder over the pyramid's clouds (with ``psum``, the
         cloud axis's: this rank's cloud, its norms summed over the axis) ->
-        (bottleneck features [B, Nc, C], the decoder's skips)."""
-        cfg = self.cfg
+        (bottleneck features [B, Nc, C], the decoder's skips).  A block gets
+        its level's lists, shared rel and tile metadata (if any)."""
         plan = self.plan
-        impl = resolve_kpconv_impl(cfg.kpconv_impl)
-        # The dense search route's pyramid carries no tile-local metadata.
-        tiled = impl == "fused" and cfg.kpconv_tiled and bool(pyramid.conv_local)
-        conv_rel, pool_rel = self._shared_rel(pyramid, impl, tiled)
+        tiled_pyramid = bool(pyramid.conv_local)
+        conv_rel, pool_rel = self._shared_rel(pyramid, tiled_pyramid)
         x = features
         skip_x = []
         for block_i, (bp, block) in enumerate(zip(plan.encoder, self.encoder_blocks)):
             if block_i in plan.encoder_skips:
                 skip_x.append(x)
             lvl = bp.layer
-            # A deformable conv ignores the tiled metadata (its offset
-            # sub-conv runs off the tiled route); with it, a strided block's
-            # shortcut takes the tiled route's max-pool all the same.
             if bp.strided:
                 q_pts, q_mask = pyramid.points[lvl + 1], pyramid.masks[lvl + 1]
                 neighb, rel = pyramid.pools[lvl], pool_rel.get(lvl)
-                tmeta = pyramid.pool_local[lvl] if tiled else None
+                tmeta = pyramid.pool_local[lvl] if tiled_pyramid else None
             else:
                 q_pts, q_mask = pyramid.points[lvl], pyramid.masks[lvl]
                 neighb, rel = pyramid.neighbors[lvl], conv_rel.get(lvl)
-                tmeta = pyramid.conv_local[lvl] if tiled else None
+                tmeta = pyramid.conv_local[lvl] if tiled_pyramid else None
             x = block(x, q_pts, pyramid.points[lvl], neighb, q_mask, pyramid.masks[lvl],
-                      rel, tiled_meta=tmeta, psum=psum)
+                      rel, tmeta, psum=psum)
         return x, skip_x
 
     def forward(self, pyramid: Pyramid, features: torch.Tensor,

@@ -64,8 +64,8 @@ def dp_steps(payload_path: str, out_path: str) -> None:
     cloud axis, default 1), ``eval_uniforms``, ``norm_probe`` and
     ``nan_grad``.  The rank builds the model on its device, takes its shard
     on ``make_mesh(n_model=n_model)`` (``parallel/mesh.py``), runs
-    ``eval_step_dp`` on the given weights (with ``eval_uniforms``), then
-    ``train_step_dp`` once per entry of ``uniforms`` with the kernels'
+    ``eval_step`` on the mesh on the given weights (with ``eval_uniforms``),
+    then ``train_step`` on the mesh once per entry of ``uniforms`` with the kernels'
     launch and exchange counts (``parallel/cloud.py``) zeroed just before;
     it writes ``<out_path>.rank<r>``: the eval stats, the stats of every
     step, the parameters after step 1, the launches and exchanges over the
@@ -85,7 +85,7 @@ def dp_steps(payload_path: str, out_path: str) -> None:
     from pcrcg_tpu_torch.parallel.mesh import make_mesh, replicate, shard_images
     from pcrcg_tpu_torch.parallel.mesh import shard_pair_batch
     from pcrcg_tpu_torch.train.state import TrainState
-    from pcrcg_tpu_torch.train.step import eval_step_dp, train_step_dp
+    from pcrcg_tpu_torch.train.step import eval_step, train_step
 
     payload = torch.load(payload_path, weights_only=False)
     cfg = payload["cfg"]
@@ -113,7 +113,7 @@ def dp_steps(payload_path: str, out_path: str) -> None:
                   for k, v in shard_images(images, mesh, payload["batch"].points.shape[0]).items()}
     eval_uniforms = payload.get("eval_uniforms")
     if eval_uniforms is not None:  # on the weights as given
-        ev = eval_step_dp(state, cfg, batch, uniforms=eval_uniforms, images=images, mesh=mesh)
+        ev = eval_step(state, cfg, batch, uniforms=eval_uniforms, images=images, mesh=mesh)
         out["eval"] = {k: float(v) for k, v in ev.items()}
     kernels.reset_launches()
     cloud.reset_exchanges()
@@ -121,7 +121,7 @@ def dp_steps(payload_path: str, out_path: str) -> None:
         if mesh.device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = train_step_dp(state, cfg, batch, uniforms=uniforms, images=images, mesh=mesh)
+        stats = train_step(state, cfg, batch, uniforms=uniforms, images=images, mesh=mesh)
         stats = {k: float(v) for k, v in stats.items()}
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["stats"].append(stats)

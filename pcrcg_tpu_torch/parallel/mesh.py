@@ -8,7 +8,7 @@ of the pair axis and, with ``n_model = 2``, its cloud of each pair
 (``parallel/cloud.py``: the model runs one cloud a rank and exchanges what
 couples the clouds); parameters and optimizer state are the same on every
 rank (broadcast from rank 0), and the step reduces gradients and stats
-itself (``train/step.py::train_step_dp``).
+itself (``train/step.py::train_step`` with ``mesh=``).
 """
 from __future__ import annotations
 

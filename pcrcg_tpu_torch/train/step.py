@@ -9,37 +9,33 @@ of the pairs' gradients over B), so only one pair's activations live at a
 time.  Stats are means over the pairs, ``max_*`` stats maxima.  The
 pyramid carries no gradient.
 
-``train_step_dp`` / ``eval_step_dp`` are the data-parallel twins
+With a ``mesh`` (``parallel/multihost.py::DataMesh``) the same
+``train_step`` / ``eval_step`` run data-parallel
 (pcrcg_tpu/train/step.py:148-242): each rank of ``torch.distributed`` runs
-the same per-pair body on its shard of the global batch, then the
-gradients are averaged over the ranks (one ``all_reduce`` over one flat
-buffer, divided by the world size: the mean over the global batch) and
-the stats too (``max_*``: the maximum), so every rank applies the same
-update and takes the same finite-gradient decision.  Pair i of the global
-batch gets the same sampling draws whichever rank holds it.
+the per-pair body on its shard of the global batch, with the draws pair i
+of the global batch gets on any rank; then one ``all_reduce`` over one
+flat buffer sums the gradients and divides by n_data, and the stats are
+reduced too (``max_*``: the maximum over every rank), so every rank
+applies the same update and takes the same finite-gradient decision.
 
-On a mesh with the cloud ('model') axis (``make_mesh(n_data, 2)``; the
-GSPMD-sharded ``train_step`` / ``eval_step`` of the JAX package) a rank
-holds one cloud of each of its pairs (``parallel/cloud.py``): it builds
-that cloud's pyramid, runs the model with the axis, and computes the loss
-from the gathered outputs and both clouds' geometry, with its data row's
-draws.  It back-propagates 1 / n_model of the loss, so the gradient of
-every parameter, per-cloud (encoder, bottle, decoder) or repeated on both
-ranks (GCN, projections, epsilon, heads), is the SUM over the model axis;
-one ``all_reduce`` over every rank, divided by n_data, takes that sum and
-the mean over the data axis at once.  A non-finite gradient on any rank
-reaches every rank through it, so the finite gate agrees.  ``max_*``
-stats take the maximum over every rank (a rank sees its own cloud's
-overflow), the other stats, the same on a row's ranks, the mean over the
-data axis.
+On the cloud ('model') axis (``make_mesh(n_data, 2)``; the JAX package's
+GSPMD-sharded steps) a rank holds one cloud of each of its pairs
+(``parallel/cloud.py``): it builds that cloud's pyramid, runs the model
+with the axis, and computes the loss from the gathered outputs and both
+clouds' geometry with its data row's draws.  It back-propagates 1 /
+n_model of the loss, so the gradient of every parameter, per-cloud
+(encoder, bottle, decoder) or repeated on both ranks (GCN, projections,
+epsilon, heads), is the SUM over the model axis, and the one
+``all_reduce`` takes that sum and the mean over the data axis at once; a
+non-finite gradient on any rank reaches every rank through it.  The
+other stats, the same on a row's ranks, are averaged over the data axis.
 
-On the default (tiled) KPConv route the backward reaches K3 / K4 through
-every encoder KPConv and K5 through every strided shortcut; with ``kpconv_tiled: false`` it reaches K3's gathered
-entry through every KPConv (K6 / K7 forward), and the gathers' own
-backward is an ``index_add_``.  ``kpconv_impl: reduce`` serves only.
+The backward goes through each KPConv's route (``models/kpconv.py::
+conv_route``); ``kpconv_impl: reduce`` serves only, and ``train_step``
+refuses it.
 
-Traced (``utils/profiling.py``): a ``train_step`` (or ``train_step_dp``)
-is the unit ``train_step``, its stages ``pyramid``, ``forward`` (the model,
+Traced (``utils/profiling.py``): a ``train_step`` is the unit
+``train_step``, its stages ``pyramid``, ``forward`` (the model,
 the color model's lift included), ``loss``, ``backward`` (the
 ``.backward()`` call) and ``optimizer`` (``TrainState.apply_gradients``).
 """
@@ -54,12 +50,12 @@ from pcrcg_tpu_torch.config import Config
 from pcrcg_tpu_torch.data.pair import PairBatch
 from pcrcg_tpu_torch.geom.so3 import quaternion_from_matrix
 from pcrcg_tpu_torch.losses import LossInputs, metric_loss
-from pcrcg_tpu_torch.models.kpconv import resolve_kpconv_impl
+from pcrcg_tpu_torch.models.kpconv import conv_route
 from pcrcg_tpu_torch.models.lift import images_to
 from pcrcg_tpu_torch.models.pcrcg import refuse_image_feature
 from pcrcg_tpu_torch.ops.pyramid import build_pyramid_cfg
 from pcrcg_tpu_torch.parallel.cloud import CloudAxis
-from pcrcg_tpu_torch.parallel.multihost import DataMesh, global_data_mesh, host_local_batch_slice
+from pcrcg_tpu_torch.parallel.multihost import DataMesh, host_local_batch_slice
 from pcrcg_tpu_torch.train.state import TrainState
 from pcrcg_tpu_torch.utils.packing import pack_pytree
 from pcrcg_tpu_torch.utils.profiling import stage, unit_span
@@ -175,40 +171,48 @@ def _stats_over_pairs(model, cfg: Config, batch: PairBatch,
 def train_step(state: TrainState, cfg: Config, batch: PairBatch,
                uniforms: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               images=None) -> Dict[str, torch.Tensor]:
+               images=None, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """Loss, gradients and one optimizer update (skipped when a gradient is
     not finite; ``state.step`` advances either way).  ``images``: the
     batch's image dict, every leaf with the pair-batch axis first.  Returns
-    the stats."""
-    _refuse_reduce(cfg)
+    the stats.  With ``mesh``: ``batch`` (and ``images``) is this rank's
+    shard (``parallel/mesh.py::shard_pair_batch``), ``uniforms`` the GLOBAL
+    batch's draws (or drawn from ``generator``, one stream on every rank);
+    gradients and stats are reduced over the ranks before the finite check
+    and the update, and the global stats returned."""
+    conv_route(cfg.kpconv_impl, backward=True)
     with unit_span("train_step"):
+        if mesh is not None:
+            uniforms = _shard_draws(cfg, batch, uniforms, generator, mesh)
         state.zero_grad()
         with torch.enable_grad():
             stats = _stats_over_pairs(state.model, cfg, batch, uniforms, generator,
-                                      backward=True, images=images)
+                                      backward=True, images=images,
+                                      cloud=None if mesh is None else mesh.cloud)
+        if mesh is not None:
+            with torch.no_grad():
+                _all_reduce_grads(state.params, mesh.n_data)
+                stats = _reduce_stats(stats, mesh)
         with stage("optimizer"):
             state.apply_gradients()
     return stats
 
 
-def _refuse_reduce(cfg: Config) -> None:
-    if resolve_kpconv_impl(cfg.kpconv_impl) == "reduce":
-        raise NotImplementedError(
-            "kpconv_impl='reduce' serves only: its kernel (K8, pcrcg_tpu/ops/kpconv_pallas.py)"
-            " has no backward, and the JAX package defines no VJP for it"
-        )
-
-
-def _all_reduce_mean(tensors, n_data: int) -> None:
-    """Reduce ``tensors`` (in place) over the ranks: one SUM over one flat
-    buffer per dtype, in a fixed layout, divided by ``n_data`` (the mean
-    over the data axis of the sum over the model axis)."""
-    pack, unpack = pack_pytree(list(tensors))
-    packed = pack(list(tensors))
+def _all_reduce_grads(params, n_data: int) -> None:
+    """Reduce every gradient (in place; zeros where a parameter has none)
+    over the ranks: one SUM over one flat buffer per dtype, in a fixed
+    layout, divided by ``n_data`` (the mean over the data axis of the sum
+    over the model axis)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    pack, unpack = pack_pytree(grads)
+    packed = pack(grads)
     for flat in packed.values():
         dist.all_reduce(flat)
         flat.div_(n_data)
-    for t, r in zip(tensors, unpack(packed)):
+    for t, r in zip(grads, unpack(packed)):
         t.copy_(r)
 
 
@@ -249,58 +253,19 @@ def _shard_draws(cfg: Config, batch: PairBatch, uniforms: Optional[torch.Tensor]
     return uniforms[host_local_batch_slice(n_pairs, mesh)].to(batch.points.device)
 
 
-def train_step_dp(state: TrainState, cfg: Config, batch: PairBatch,
-                  uniforms: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None,
-                  images=None, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
-    """``train_step`` over the ranks of ``torch.distributed``: ``batch`` (and
-    ``images``) is this rank's shard of the global batch
-    (``parallel/mesh.py::shard_pair_batch`` on ``mesh``, by default every
-    rank on the 'data' axis), ``uniforms`` the GLOBAL batch's draws
-    [B, N0·corr_k] (or drawn from ``generator``, the same stream on every
-    rank).  The gradients and stats are reduced over the ranks before the
-    finite check and the update, so every rank's parameters stay equal.
-    Returns the global stats."""
-    _refuse_reduce(cfg)
-    mesh = mesh or global_data_mesh()
-    with unit_span("train_step"):
-        draws = _shard_draws(cfg, batch, uniforms, generator, mesh)
-        state.zero_grad()
-        with torch.enable_grad():
-            stats = _stats_over_pairs(state.model, cfg, batch, draws, generator,
-                                      backward=True, images=images, cloud=mesh.cloud)
-        with torch.no_grad():
-            grads = []
-            for p in state.params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
-            _all_reduce_mean(grads, mesh.n_data)
-            stats = _reduce_stats(stats, mesh)
-        with stage("optimizer"):
-            state.apply_gradients()
-    return stats
-
-
-@torch.no_grad()
-def eval_step_dp(state: TrainState, cfg: Config, batch: PairBatch,
-                 uniforms: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None,
-                 images=None, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
-    """The data-parallel twin of ``eval_step``: the global stats."""
-    mesh = mesh or global_data_mesh()
-    draws = _shard_draws(cfg, batch, uniforms, generator, mesh)
-    stats = _stats_over_pairs(state.model, cfg, batch, draws, generator, images=images,
-                              cloud=mesh.cloud)
-    return _reduce_stats(stats, mesh)
-
-
 @torch.no_grad()
 def eval_step(state: TrainState, cfg: Config, batch: PairBatch,
               uniforms: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              images=None) -> Dict[str, torch.Tensor]:
-    return _stats_over_pairs(state.model, cfg, batch, uniforms, generator, images=images)
+              images=None, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
+    """The loss stats, no update; with ``mesh`` as ``train_step``'s: this
+    rank's shard, the global draws, the global stats."""
+    if mesh is None:
+        return _stats_over_pairs(state.model, cfg, batch, uniforms, generator, images=images)
+    draws = _shard_draws(cfg, batch, uniforms, generator, mesh)
+    stats = _stats_over_pairs(state.model, cfg, batch, draws, generator, images=images,
+                              cloud=mesh.cloud)
+    return _reduce_stats(stats, mesh)
 
 
 @torch.no_grad()

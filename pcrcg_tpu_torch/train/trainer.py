@@ -18,7 +18,7 @@ in a ``torch.distributed`` run (``parallel/multihost.py``; ``main.py``
 starts the ranks for ``data_parallel: N``, or torchrun does) every rank
 builds the same model, loads its slice of each global batch of
 ``batch_size`` pairs under one shared shuffle, and steps with
-``train_step_dp`` / ``eval_step_dp``; parameters and optimizer state are
+``train_step`` / ``eval_step`` on the mesh; parameters and optimizer state are
 broadcast from rank 0 after the model is built, a ``.pth`` imported or a
 checkpoint restored.  Rank 0 alone logs, prints and writes checkpoints;
 the ranks meet at a barrier after each write.  ``data_parallel`` beyond
@@ -45,9 +45,7 @@ from pcrcg_tpu_torch.models.weights import load_backbone2d, load_kpfcnn
 from pcrcg_tpu_torch.parallel.mesh import make_mesh, replicate
 from pcrcg_tpu_torch.train.checkpoints import CheckpointManager
 from pcrcg_tpu_torch.train.state import TrainState
-from pcrcg_tpu_torch.train.step import (
-    eval_step, eval_step_dp, infer_step, train_step, train_step_dp,
-)
+from pcrcg_tpu_torch.train.step import eval_step, infer_step, train_step
 from pcrcg_tpu_torch.utils.logging import Logger
 from pcrcg_tpu_torch.utils.timer import RunningStat, Stopwatch
 
@@ -212,14 +210,12 @@ class Trainer:
         num_iter = len(loader)
         timer = Stopwatch()
         inflight: deque = deque()
-        if self.mesh is None:
-            step = train_step if phase == "train" else eval_step
-        else:
-            step = train_step_dp if phase == "train" else eval_step_dp
+        step = train_step if phase == "train" else eval_step
         for c_iter, (batch, images) in enumerate(loader):
             timer.tic()
             batch, images = to_device(batch, images, self.device)
-            stats = step(self.state, self.cfg, batch, generator=self.generator, images=images)
+            stats = step(self.state, self.cfg, batch, generator=self.generator, images=images,
+                         mesh=self.mesh)
             # Pipelined metering, as in the JAX Trainer: step i - 2's stats
             # are read once step i is enqueued.  The eager step's own
             # finite-gradient check (train/state.py) has already waited for

@@ -6,13 +6,13 @@ on the two pairs of ``tests/test_torch_parallel.py::_samples`` (the
 training crop, and a subsample of the assets pair whose source cloud
 overflows its coarse budgets by more than its target).
 
-* ``train_step_dp`` on the ``(1, 2)`` and ``(2, 2)`` meshes equals the
+* ``train_step`` on the ``(1, 2)`` and ``(2, 2)`` meshes equals the
   port's single-process ``train_step`` on the same weights and draws:
   loss terms rtol 1e-4, every parameter after the step rtol 5e-4 /
   atol 5e-5, checked group by group (encoder, GCN, decoder, heads) so
   that a gradient counted twice shows; every rank's parameters and stats
   are bit-identical.
-* ``eval_step_dp`` on both meshes equals the JAX package's ``eval_step``
+* ``eval_step`` on both meshes equals the JAX package's ``eval_step``
   over a cloud-sharded batch on ``make_mesh(1, n_model=2)`` of its
   8-device virtual CPU mesh, with the JAX weights carried across and the
   JAX draws: every stat rtol 1e-4.

@@ -524,7 +524,7 @@ def test_kpconv_weights_get_a_gradient_on_cuda(cuda):
         conv.weights.copy_(w)
         conv.kernel_points.copy_(kp)
     x = feats[None].clone().requires_grad_(True)
-    out = conv(q[None], sup[None], gidx[None], x, tiled_meta=(lidx[None], tiles[None]))
+    out = conv(q[None], sup[None], gidx[None], x, tile_meta=(lidx[None], tiles[None]))
     out.square().sum().backward()
     assert conv.weights.grad is not None and float(conv.weights.grad.abs().sum()) > 0
     assert x.grad is not None and float(x.grad.abs().sum()) > 0

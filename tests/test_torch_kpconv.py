@@ -109,7 +109,7 @@ def test_kpconv_module_stacks_clouds():
     tiles = T(np.stack([p["tiles"] for p in per]))
     got = conv(T(np.stack([p["q"] for p in per])), T(np.stack([p["sup"] for p in per])),
                T(np.stack([p["gidx"] for p in per])).long(),
-               T(np.stack([p["feats"] for p in per])), tiled_meta=(lidx, tiles)).detach().numpy()
+               T(np.stack([p["feats"] for p in per])), tile_meta=(lidx, tiles)).detach().numpy()
     for b, p in enumerate(per):
         want = np.asarray(j_kpconv(
             jnp.asarray(p["q"]), jnp.asarray(p["sup"]), jnp.asarray(p["gidx"]),
@@ -117,3 +117,29 @@ def test_kpconv_module_stacks_clouds():
             jnp.asarray(per[0]["w"][:, :6, :10]), 0.24,
         ))
         np.testing.assert_allclose(got[b], want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("tiled", [True, False], ids=["tile-route", "merged"])
+def test_strided_conv_keeps_the_tile_shortcut_outside_the_module_call(tiled):
+    """``KPConv.strided`` equals ``forward(..., shortcut_x=)`` on both
+    routes.  On the tile route the module's call gets no shortcut (its
+    ``max_pool_first`` runs after the call, outside forward hooks); on the
+    merged route the shortcut comes from the conv's own call."""
+    per = [_setup(seed, nq=150, ns=590, c=6, d=10) for seed in (5, 6)]
+    conv = KPConv(6, 10, radius=0.2, kp_extent=0.24, tile=TILE, tiled=tiled)
+    with torch.no_grad():
+        conv.weights.copy_(T(per[0]["w"][:, :6, :10]))
+        conv.kernel_points.copy_(T(per[0]["kp"]))
+    args = (T(np.stack([p["q"] for p in per])), T(np.stack([p["sup"] for p in per])),
+            T(np.stack([p["gidx"] for p in per])).long(), T(np.stack([p["feats"] for p in per])))
+    meta = (T(np.stack([p["lidx"] for p in per])), T(np.stack([p["tiles"] for p in per])))
+    sx = torch.randn(2, 590, 5, generator=torch.Generator().manual_seed(0))
+    want_out, want_sc = conv(*args, shortcut_x=sx, tile_meta=meta)
+    seen = []
+    conv.register_forward_pre_hook(
+        lambda m, a, kw: seen.append(len(a) > 5 and a[5] is not None or
+                                     kw.get("shortcut_x") is not None), with_kwargs=True)
+    got_out, got_sc = conv.strided(*args, sx, tile_meta=meta)
+    assert seen == [not tiled]
+    torch.testing.assert_close(got_out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(got_sc, want_sc, rtol=0, atol=0)

@@ -6,12 +6,12 @@ training crop of ``tests/test_torch_train.py`` and a 256-point subsample of
 the whole assets pair, whose coarse levels overflow their budgets (so the
 batch's ``max_overflow`` is one pair's, not the mean).
 
-* ``train_step_dp`` over 2 ranks, a pair each, equals the port's
+* ``train_step`` on a mesh of 2 ranks, a pair each, equals the port's
   single-process ``train_step`` on the 2-pair batch with the same weights
   and draws: loss rtol 1e-4, parameters after the step rtol 5e-4 /
   atol 5e-5 (the tolerances of ``tests/test_parallel.py``); the ranks'
   stats and parameters are bit-identical to each other.
-* ``eval_step_dp`` over the 2 ranks equals the JAX package's
+* ``eval_step`` on the 2 ranks' mesh equals the JAX package's
   ``eval_step_dp`` on a 2-device slice of its 8-device virtual mesh, with
   the JAX weights carried across and the JAX draws: every stat rtol 1e-4.
 * ``max_*`` stats take the maximum over the ranks; a non-finite gradient on
